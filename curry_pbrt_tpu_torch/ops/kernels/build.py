@@ -1,0 +1,99 @@
+"""Build and load the port's CUDA kernels (csrc/*.cu) with nvcc and ctypes.
+
+The sources are compiled at first use into build/kernels/ under the repo
+root, for Hopper only (sm_90a), as a shared library with a plain C
+interface — no PyTorch headers, so a build takes seconds, not minutes. The
+library name carries a hash of the sources and flags, so an edited source is
+never served from a stale build.
+
+Flags that are decisions, not defaults:
+  -fmad=false   no contraction of a*b+c into an FMA: the watertight
+                triangle test's error bounds assume separately rounded ops,
+                and the plain PyTorch versions (and the JAX reference)
+                round each op separately. chip_smoke.py pins this by
+                requiring the kernels' t to be bit-equal to the plain
+                versions'.
+  no --use_fast_math, so division and sqrt stay IEEE-rounded.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (looked on PATH and in $CUDA_HOME/bin)")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    cu, cuh = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in cu + cuh:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"libcurry_kernels_{h.hexdigest()[:12]}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile csrc/*.cu into the shared library (skipped when a library
+    built from the same sources and flags exists). verbose adds
+    `-Xptxas -v` and prints nvcc's output (registers, spills)."""
+    out = library_path()
+    if out.exists() and not verbose:
+        return out
+    cu, _ = _sources()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", str(tmp), *map(str, cu)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+    if verbose:
+        print(res.stdout + res.stderr, end="")
+    os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
+    return out
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build if needed, load, and declare every entry point's C signature."""
+    lib = ctypes.CDLL(str(build()))
+    lib.curry_tri_closest_hit.argtypes = [
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P,
+    ]
+    lib.curry_tri_closest_hit.restype = _I
+    lib.curry_tri_any_hit.argtypes = [
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P,
+    ]
+    lib.curry_tri_any_hit.restype = _I
+    return lib

@@ -1,0 +1,63 @@
+"""The PyTorch port stands alone: it imports no JAX, it has no silent
+fallback from the card to the CPU, and its chip smoke run refuses to run
+without a GPU."""
+
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _run(code: str, cwd=REPO):
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_port_imports_no_jax():
+    res = _run(
+        "import sys\n"
+        "import curry_pbrt_tpu_torch, curry_pbrt_tpu_torch.render, curry_pbrt_tpu_torch.cli\n"
+        "import curry_pbrt_tpu_torch.ops.kernels, curry_pbrt_tpu_torch.interop\n"
+        "import curry_pbrt_tpu_torch.ops.kernels.aggregate, curry_pbrt_tpu_torch.ops.kernels.build\n"
+        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "assert not any(m.startswith('curry_pbrt_tpu.') or m == 'curry_pbrt_tpu'\n"
+        "               for m in sys.modules)\n"
+        "print('ok')\n"
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_cuda_device_without_a_card_raises():
+    """device='cuda' never falls back to the CPU."""
+    from curry_pbrt_tpu_torch.render import resolve_device
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the no-card path cannot be shown here")
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    """chip_smoke.py exits non-zero and prints no result line without CUDA,
+    and alone in a directory without the package."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    res = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+    lone = tmp_path / "chip_smoke.py"
+    shutil.copy(REPO / "chip_smoke.py", lone)
+    res = subprocess.run([sys.executable, str(lone)], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
