@@ -1,13 +1,14 @@
-// Per-ray device code shared by the closest-hit and any-hit traversal
-// kernels (intersect.cu): ray setup, the widened slab test and the
-// watertight ray-triangle test.
+// Per-ray device code shared by the traversal kernels (intersect.cu): ray
+// setup, the widened slab test, the watertight ray-triangle test and the
+// stable-quadratic ray-sphere test.
 //
 // Every expression below is written in the operation order of the plain
 // PyTorch versions (ops/kernels/intersect_kernel.py, ops/intersect.py
-// watertight_core), and the library is built with -fmad=false and without
-// fast math, so each add, multiply and divide rounds separately, exactly as
-// the eager PyTorch ops and the JAX reference do. The watertight test's
-// conservative error bounds (pbrt §3.9) assume that rounding.
+// watertight_core, ops/kernels/sphere_kernel.py), and the library is built
+// with -fmad=false and without fast math, so each add, multiply, divide and
+// square root rounds separately (IEEE), exactly as the eager PyTorch ops and
+// the JAX reference do. The watertight test's conservative error bounds
+// (pbrt §3.9) assume that rounding.
 #pragma once
 
 #include <cfloat>
@@ -15,9 +16,9 @@
 
 namespace curry {
 
-constexpr int TRI_COLS = 16;  // (T, 16) rows: p0 xyz, p1 xyz, p2 xyz, valid
-constexpr int BOX_COLS = 8;   // (C, 8) rows: bmin xyz, bmax xyz, 2 unused
-constexpr int SUPER_G = 8;    // clusters per super-cluster
+constexpr int PRIM_COLS = 16;  // (rows, 16) primitive tables: tris16 and sph16
+constexpr int BOX_COLS = 8;    // (C, 8) rows: bmin xyz, bmax xyz, 2 unused
+constexpr int SUPER_G = 8;     // clusters per super-cluster
 
 // Error-bound constants, computed once on the host in float32 exactly as
 // the plain version computes them, and passed in by value.
@@ -35,10 +36,12 @@ __device__ __forceinline__ float nan_max(float a, float b) {
     return (isnan(a) || isnan(b)) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
 }
 
-// What one thread keeps about its ray for the whole traversal.
+// What one thread keeps about its ray for the whole traversal. Each
+// primitive test reads only its own fields; the compiler drops the rest.
 struct Ray {
     float ox, oy, oz;
-    float sx, sy, sz;  // shear to +z (ray_shear)
+    float dx, dy, dz;  // raw direction (sphere test)
+    float sx, sy, sz;  // shear to +z (ray_shear; triangle test)
     int kz;            // dominant axis of |d|
     float ix, iy, iz;  // 1 / d with 0 → 1e-30 (slab test)
 };
@@ -53,6 +56,9 @@ __device__ __forceinline__ Ray make_ray(const float* o, const float* d) {
     r.oy = o[1];
     r.oz = o[2];
     const float dx0 = d[0], dy0 = d[1], dz0 = d[2];
+    r.dx = dx0;
+    r.dy = dy0;
+    r.dz = dz0;
     const float ax = fabsf(dx0), ay = fabsf(dy0), az = fabsf(dz0);
     // first max index (_argmax3)
     r.kz = (ax >= ay && ax >= az) ? 0 : (ay >= az ? 1 : 2);
@@ -73,7 +79,7 @@ __device__ __forceinline__ Ray make_ray(const float* o, const float* d) {
 // Slab test of one ray against one AABB row, widened by (1 + 2γ₃) on the far
 // side (pbrt bounds). `t_best > 0` is the dead-lane gate: integrators pass
 // t_max = 0 for lanes whose result is discarded, and such a lane must never
-// enter a box even when its stale origin lies inside it.
+// enter a box even when its stale origin lies inside it. 25 f32 operations.
 __device__ __forceinline__ bool box_enter(const float* box, const Ray& r, float t_best,
                                           float t_scale) {
     const float t0x = (box[0] - r.ox) * r.ix, t1x = (box[3] - r.ox) * r.ix;
@@ -87,8 +93,10 @@ __device__ __forceinline__ bool box_enter(const float* box, const Ray& r, float 
     return (tn <= tf) && (tn < t_best) && (tf > 0.0f) && (t_best > 0.0f);
 }
 
-// Watertight test of one ray against one table row, with t_best as the
-// range bound. Returns the hit t, or FLT_MAX where there is no hit.
+// Watertight test of one ray against one tris16 row (p0 xyz, p1 xyz, p2 xyz,
+// valid ±1), with t_best as the range bound. Returns the hit t, or FLT_MAX
+// where there is no hit. 84 f32 operations (add, sub, mul, div, abs, min,
+// max; comparisons and selects not counted) on a valid row.
 __device__ __forceinline__ float tri_test(const float* tri, const Ray& r, float t_best,
                                           const Consts& k) {
     if (!(tri[9] > 0.0f)) return FLT_MAX;  // padding row
@@ -133,5 +141,64 @@ __device__ __forceinline__ float tri_test(const float* tri, const Ray& r, float 
     const bool ok = same_side && (det != 0.0f) && in_range && (t > delta_t);
     return ok ? t : FLT_MAX;
 }
+
+// Stable-quadratic test of one ray against one sph16 row (cols 0-8 the
+// world-to-object rotation rows, 9-11 its translation, 12 the radius, 13 a
+// ±1 valid flag), with t_best as the range bound: the ray goes into the
+// sphere's object space through its RAW direction, and |o + t d|² = r² is
+// solved with the small root recovered as c/q and the discriminant from the
+// perpendicular distance (reference sphere.rs:111-132). Operation for
+// operation the JAX kernel's _sphere_tile_test, including the double-where
+// square root and NaN-propagating min/max. Returns the hit t or FLT_MAX.
+// 73 f32 operations (counted as for tri_test) on a valid row.
+__device__ __forceinline__ float sphere_test(const float* s, const Ray& r, float t_best,
+                                             const Consts&) {
+    if (!(s[13] > 0.0f)) return FLT_MAX;  // padding row
+    const float oox = s[0] * r.ox + s[1] * r.oy + s[2] * r.oz + s[9];
+    const float ooy = s[3] * r.ox + s[4] * r.oy + s[5] * r.oz + s[10];
+    const float ooz = s[6] * r.ox + s[7] * r.oy + s[8] * r.oz + s[11];
+    const float ddx = s[0] * r.dx + s[1] * r.dy + s[2] * r.dz;
+    const float ddy = s[3] * r.dx + s[4] * r.dy + s[5] * r.dz;
+    const float ddz = s[6] * r.dx + s[7] * r.dy + s[8] * r.dz;
+
+    const float a = ddx * ddx + ddy * ddy + ddz * ddz;
+    const float safe_a = (a == 0.0f) ? 1.0f : a;
+    const float b_half = oox * ddx + ooy * ddy + ooz * ddz;
+    const float radius = s[12];
+    const float r2 = radius * radius;
+    const float c = oox * oox + ooy * ooy + ooz * ooz - r2;
+    const float t_center = -b_half / safe_a;
+    const float px = oox + t_center * ddx;
+    const float py = ooy + t_center * ddy;
+    const float pz = ooz + t_center * ddz;
+    const float perp2 = px * px + py * py + pz * pz;
+    const bool disc_ok = (perp2 <= r2) && (a > 0.0f);
+    const float disc = a * (r2 - perp2);
+    const float sq = (disc <= 0.0f) ? 0.0f : sqrtf(disc);
+    const float sgn = (b_half >= 0.0f) ? 1.0f : -1.0f;
+    const float q = -(b_half + sgn * sq);
+    const float safe_q = (q == 0.0f) ? 1.0f : q;
+    const float r1 = q / safe_a;
+    const float r2q = (q == 0.0f) ? r1 : c / safe_q;
+    const float t0 = nan_min(r1, r2q);
+    const float t1 = nan_max(r1, r2q);
+    const float t = (t0 >= 0.0f) ? t0 : t1;
+    const bool ok = disc_ok && (t0 <= t_best) && (t1 >= 0.0f) && (t <= t_best);
+    return ok ? t : FLT_MAX;
+}
+
+// The primitive tests as types, so one templated walk serves both.
+struct TriPrim {
+    __device__ __forceinline__ static float test(const float* row, const Ray& r, float t_best,
+                                                 const Consts& k) {
+        return tri_test(row, r, t_best, k);
+    }
+};
+struct SpherePrim {
+    __device__ __forceinline__ static float test(const float* row, const Ray& r, float t_best,
+                                                 const Consts& k) {
+        return sphere_test(row, r, t_best, k);
+    }
+};
 
 }  // namespace curry

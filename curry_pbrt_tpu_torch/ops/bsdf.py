@@ -6,15 +6,21 @@ batched per-ray parameters; all lobe math runs in the shading-local frame
 (normal = +z) on (N, ...) tensors, with `torch.where` masks in place of the
 reference's Option returns.
 
-Ported lobes: lambert_r, spec_r (dielectric or no-op Fresnel) and spec_t —
-what matte, glass and mirror need. oren_nayar, lambert_t and the GGX lobes
-raise NotImplementedError until ROADMAP Queue 1 item 5 ports them.
+Lobe kinds (suffix _r = reflect bucket, _t = transmit bucket):
+  non-delta: lambert_r, lambert_t, oren_nayar, ggx_r, ggx_t
+  delta:     spec_r, spec_t
 
 Reference algorithm mapping:
   bsdf_eval_pdf        ← BSDF::no_delta_f_pdf      (bxdf/mod.rs:176-198)
   bsdf_sample_nondelta ← BSDF::sample_no_delta_f   (bxdf/mod.rs:148-159)
   bsdf_sample_delta    ← BSDF::sample_delta_f      (bxdf/mod.rs:160-175)
   bsdf_sample          ← BSDF::sample_f            (bxdf/mod.rs:199-214)
+  delta lobes          ← DeltaBxDF impls           (bxdf/specular.rs)
+  GGX                  ← TrowbridgeReitz           (bxdf/microfacet.rs)
+
+The reference's default lobe pdf is wi.z/π even when wi is in the
+transmission hemisphere (bxdf/mod.rs:38-40, can be negative); like the JAX
+package, this uses |wi.z|/π.
 """
 
 from __future__ import annotations
@@ -25,13 +31,12 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from curry_pbrt_tpu_torch.dtypes import INV_PI
+from curry_pbrt_tpu_torch.dtypes import INV_PI, PI
 from curry_pbrt_tpu_torch.ops import math as m
 
 NONDELTA_KINDS = ("lambert_r", "lambert_t", "oren_nayar", "ggx_r", "ggx_t")
 DELTA_KINDS = ("spec_r", "spec_t")
 REFLECT_KINDS = ("lambert_r", "oren_nayar", "ggx_r")
-PORTED_KINDS = ("lambert_r", "spec_r", "spec_t")
 
 
 @dataclass
@@ -57,13 +62,6 @@ class Lobe:
         return self.kind in REFLECT_KINDS
 
 
-def _not_ported(kind: str):
-    return NotImplementedError(
-        f"BSDF lobe {kind!r} is not ported to curry_pbrt_tpu_torch yet "
-        "(ROADMAP.md Queue 1 item 5); ported lobes: " + ", ".join(PORTED_KINDS)
-    )
-
-
 def luminance(rgb):
     return 0.212671 * rgb[..., 0] + 0.715160 * rgb[..., 1] + 0.072169 * rgb[..., 2]
 
@@ -87,42 +85,231 @@ def fresnel_dielectric(cos_i, eta_i, eta_t):
     return torch.where(tir, 1.0, fr)
 
 
+# ---------------------------------------------------------------------------
+# Trowbridge-Reitz / GGX — microfacet.rs
+
+
 def roughness_to_alpha(rough):
-    """pbrt's log-polynomial remap (microfacet.rs:28-33); material lobe
-    plans use it even though the GGX lobes themselves are not ported."""
+    """pbrt's log-polynomial remap (microfacet.rs:28-33)."""
     rough = torch.clamp(rough, min=1e-3)
     x = torch.log(rough)
     x2 = x * x
     return 1.62142 + 0.819955 * x + 0.1734 * x2 + 0.0171201 * x * x2 + 0.000640711 * x2 * x2
 
 
+def tr_d(wh, alpha_x, alpha_y):
+    t2 = m.tan2_theta(wh)
+    bad = torch.isnan(t2) | torch.isinf(t2)
+    t2 = torch.where(bad, 0.0, t2)
+    c2 = m.cos2_theta(wh)
+    c4 = c2 * c2
+    e = (m.cos2_phi(wh) / (alpha_x * alpha_x) + m.sin2_phi(wh) / (alpha_y * alpha_y)) * t2
+    d = 1.0 / (float(PI) * alpha_x * alpha_y * torch.clamp(c4, min=1e-20) * (1.0 + e) * (1.0 + e))
+    return torch.where(bad, 0.0, d)
+
+
+def tr_lambda(w, alpha_x, alpha_y):
+    abs_tan = torch.abs(m.tan_theta(w))
+    bad = torch.isnan(abs_tan) | torch.isinf(abs_tan)
+    abs_tan = torch.where(bad, 0.0, abs_tan)
+    alpha = torch.sqrt(m.cos2_phi(w) * alpha_x * alpha_x + m.sin2_phi(w) * alpha_y * alpha_y)
+    at = alpha * abs_tan
+    lam = (-1.0 + torch.sqrt(1.0 + at * at)) / 2.0
+    return torch.where(bad, 0.0, lam)
+
+
+def tr_g(wo, wi, ax, ay):
+    return 1.0 / (1.0 + tr_lambda(wo, ax, ay) + tr_lambda(wi, ax, ay))
+
+
+def tr_g1(w, ax, ay):
+    return 1.0 / (1.0 + tr_lambda(w, ax, ay))
+
+
+def tr_sample_wh(wo, u, ax, ay):
+    """Visible-normal sampling (Heitz), exactly the reference's branchy
+    version vectorized with masks (microfacet.rs:39-92).
+
+    Returns (wh: (N,3), pdf: (N,)).
+    """
+    flip = wo[..., 2] < 0.0
+    wi = torch.where(flip[..., None], -wo, wo)
+    wi_str = m.normalize(torch.stack([ax * wi[..., 0], ay * wi[..., 1], wi[..., 2]], dim=-1))
+    cti = m.cos_theta(wi_str)
+
+    ux, uy = u[..., 0], u[..., 1]
+
+    # near-normal incidence branch (cti > 0.9999)
+    r_n = torch.sqrt(ux / torch.clamp(1.0 - ux, min=1e-12))
+    phi_n = float(2.0 * PI) * uy
+    sx_n = r_n * torch.cos(phi_n)
+    sy_n = r_n * torch.sin(phi_n)
+
+    # general branch
+    st = m.safe_sqrt(1.0 - cti * cti)
+    tan_t = st / torch.where(cti == 0, 1.0, cti)
+    a = 1.0 / torch.where(tan_t == 0, 1.0, tan_t)
+    g1 = 2.0 / (1.0 + torch.sqrt(1.0 + 1.0 / torch.clamp(a * a, min=1e-20)))
+    A = 2.0 * ux / torch.clamp(g1, min=1e-12) - 1.0
+    tmp = 1.0 / torch.where(A * A - 1.0 == 0, 1e-10, A * A - 1.0)
+    tmp = torch.clamp(tmp, max=1e10)
+    B = tan_t
+    D = m.safe_sqrt(B * B * tmp * tmp - (A * A - B * B) * tmp)
+    sx1 = B * tmp - D
+    sx2 = B * tmp + D
+    sx_g = torch.where((A < 0) | (sx2 > 1.0 / torch.where(tan_t == 0, 1e-12, tan_t)), sx1, sx2)
+    S = torch.where(uy > 0.5, 1.0, -1.0)
+    u2b = torch.where(uy > 0.5, 2.0 * (uy - 0.5), 2.0 * (0.5 - uy))
+    z = (u2b * (u2b * (u2b * 0.27385 - 0.73369) + 0.46341)) / (
+        u2b * (u2b * (u2b * 0.093073 + 0.309420) - 1.0) + 0.597999
+    )
+    sy_g = S * z * torch.sqrt(1.0 + sx_g * sx_g)
+
+    near = cti > 0.9999
+    slope_x = torch.where(near, sx_n, sx_g)
+    slope_y = torch.where(near, sy_n, sy_g)
+
+    cp, sp = m.cos_phi(wi_str), m.sin_phi(wi_str)
+    rx = cp * slope_x - sp * slope_y
+    ry = sp * slope_x + cp * slope_y
+    slope_x = rx * ax
+    slope_y = ry * ay
+    wh = m.normalize(torch.stack([-slope_x, -slope_y, torch.ones_like(slope_x)], dim=-1))
+    wh = torch.where(flip[..., None], -wh, wh)
+    pdf = (
+        tr_d(wh, ax, ay)
+        * tr_g1(wo, ax, ay)
+        * torch.abs(m.dot(wo, wh))
+        / torch.clamp(torch.abs(m.cos_theta(wo)), min=1e-12)
+    )
+    return wh, pdf
+
+
 # ---------------------------------------------------------------------------
 # non-delta lobe eval / pdf / sample
 
 
+def _everywhere(wo):
+    return torch.ones(wo.shape[:-1], dtype=torch.bool, device=wo.device)
+
+
 def lobe_f(lobe: Lobe, wo, wi):
     """(f: (N,3), present: (N,)). Masked analog of `BxDF::f` returning None."""
-    if lobe.kind == "lambert_r":
-        return lobe.albedo * float(INV_PI), torch.ones(wo.shape[:-1], dtype=torch.bool, device=wo.device)
-    raise _not_ported(lobe.kind)
+    k = lobe.kind
+    if k in ("lambert_r", "lambert_t"):
+        return lobe.albedo * float(INV_PI), _everywhere(wo)
+    if k == "oren_nayar":
+        ci, co = m.cos_theta(wi), m.cos_theta(wo)
+        cond = ci < co
+        sin_alpha = torch.where(cond, m.sin_theta(wi), m.sin_theta(wo))
+        tan_beta = torch.where(cond, m.tan_theta(wo), m.tan_theta(wi))
+        val = (
+            lobe.on_a
+            + lobe.on_b * torch.clamp(m.cos_delta_phi(wi, wo), min=0.0) * sin_alpha * tan_beta
+        ) * float(INV_PI)
+        return lobe.albedo * val[..., None], _everywhere(wo)
+    if k == "ggx_r":
+        co = torch.abs(m.cos_theta(wo))
+        ci = torch.abs(m.cos_theta(wi))
+        win = m.normalize(wi)
+        won = m.normalize(wo)
+        wh = win + won
+        degenerate = (torch.abs(wh).sum(-1) == 0.0) | (co == 0.0) | (ci == 0.0)
+        wo_up = torch.stack([wo[..., 0], wo[..., 1], wo[..., 2] + 1.0], dim=-1)  # wo + (0,0,1)
+        wh = m.normalize(torch.where(degenerate[..., None], wo_up, wh))
+        fr_cos = m.dot(win, torch.where(wh[..., 2:3] < 0, -wh, wh))
+        fr = (
+            torch.ones_like(fr_cos)
+            if lobe.fresnel_noop
+            else fresnel_dielectric(fr_cos, lobe.eta_a, lobe.eta_b)
+        )
+        f = lobe.albedo * (
+            tr_d(wh, lobe.alpha_x, lobe.alpha_y)
+            * tr_g(won, win, lobe.alpha_x, lobe.alpha_y)
+            * fr
+            / torch.clamp(4.0 * co * ci, min=1e-12)
+        )[..., None]
+        return torch.where(degenerate[..., None], 0.0, f), ~degenerate
+    if k == "ggx_t":
+        co = m.cos_theta(wo)
+        ci = m.cos_theta(wi)
+        same_side = co * ci > 0
+        degenerate = (ci == 0.0) | (co == 0.0)
+        eta = torch.where(co > 0, lobe.eta_b / lobe.eta_a, lobe.eta_a / lobe.eta_b)
+        wh = m.normalize(wo + wi * eta[..., None])
+        wh = torch.where(wh[..., 2:3] < 0, -wh, wh)
+        sqrt_denom = m.dot(wo, wh) + eta * m.dot(wi, wh)
+        fr = fresnel_dielectric(m.dot(wo, wh), lobe.eta_a, lobe.eta_b)
+        factor = 1.0 / eta
+        denom = ci * co * sqrt_denom * sqrt_denom
+        val = torch.abs(
+            tr_d(wh, lobe.alpha_x, lobe.alpha_y)
+            * tr_g(wo, wi, lobe.alpha_x, lobe.alpha_y)
+            * eta
+            * eta
+            * torch.abs(m.dot(wi, wh))
+            * torch.abs(m.dot(wo, wh))
+            * factor
+            * factor
+            / torch.where(denom == 0, 1.0, denom)
+        )
+        f = (1.0 - fr)[..., None] * lobe.albedo * val[..., None]
+        present = ~same_side & ~degenerate
+        return torch.where(present[..., None], f, 0.0), present
+    raise ValueError(k)
 
 
 def lobe_pdf(lobe: Lobe, wo, wi):
-    """Reference default pdf = |cosθ|/π for every non-delta lobe."""
+    """Reference default pdf = |cosθ|/π for every non-delta lobe. Microfacet
+    lobes do NOT override pdf for eval (f_pdf) in the reference — only their
+    sample_f returns the VNDF pdf — so the eval-side pdf is cosine for all
+    kinds."""
     return torch.abs(m.cos_theta(wi)) * float(INV_PI)
 
 
 def lobe_sample(lobe: Lobe, wo, u):
-    """Sample wi from one lobe: (wi, f, pdf, present). Cosine hemisphere
-    flipped to wo's side (bxdf/mod.rs:20-37)."""
-    if lobe.kind != "lambert_r":
-        raise _not_ported(lobe.kind)
-    wi, pdf = m.cosine_sample_hemisphere(u)
-    z = wi[..., 2:3]  # ≥ 0 from the sampler
-    zt = torch.where(wo[..., 2:3] < 0, -z, z)
-    wi = torch.cat([wi[..., :2], zt], dim=-1)
-    f, present = lobe_f(lobe, wo, wi)
-    return wi, f, pdf, present
+    """Sample wi from one lobe: (wi, f, pdf, present).
+
+    Default: cosine hemisphere flipped to the lobe's side of wo
+    (bxdf/mod.rs:20-37); GGX lobes use VNDF sampling (microfacet.rs:166-180,
+    246-266).
+    """
+    k = lobe.kind
+    if k in ("lambert_r", "lambert_t", "oren_nayar"):
+        wi, pdf = m.cosine_sample_hemisphere(u)
+        z = wi[..., 2:3]  # ≥ 0 from the sampler
+        if k == "lambert_t":
+            # transmit: flip to the FAR side of wo (bxdf/mod.rs:28-32)
+            zt = torch.where(wo[..., 2:3] > 0, -z, z)
+        else:
+            # reflect: flip to wo's side (bxdf/mod.rs:23-27)
+            zt = torch.where(wo[..., 2:3] < 0, -z, z)
+        wi = torch.cat([wi[..., :2], zt], dim=-1)
+        f, present = lobe_f(lobe, wo, wi)
+        return wi, f, pdf, present
+    if k == "ggx_r":
+        wh, wh_pdf = tr_sample_wh(wo, u, lobe.alpha_x, lobe.alpha_y)
+        dot_owh = m.dot(wo, wh)
+        wi = -wo + (2.0 * dot_owh)[..., None] * wh
+        ok = (wo[..., 2] != 0) & (dot_owh >= 0) & (wi[..., 2] * wo[..., 2] > 0)
+        f, fp = lobe_f(lobe, wo, wi)
+        pdf = wh_pdf / torch.clamp(4.0 * dot_owh, min=1e-12)
+        return wi, f, torch.where(ok, pdf, 0.0), ok & fp
+    if k == "ggx_t":
+        wh, wh_pdf = tr_sample_wh(wo, u, lobe.alpha_x, lobe.alpha_y)
+        dot_owh = m.dot(wo, wh)
+        pos = m.cos_theta(wo) > 0
+        eta_i = torch.where(pos, lobe.eta_a / lobe.eta_b, lobe.eta_b / lobe.eta_a)
+        eta_o = torch.where(pos, lobe.eta_b / lobe.eta_a, lobe.eta_a / lobe.eta_b)
+        wi, refr_ok = m.refract(wo, wh, eta_i)
+        ok = (wo[..., 2] != 0) & (dot_owh >= 0) & refr_ok
+        sqrt_denom = m.dot(wo, wh) + eta_o * m.dot(wi, wh)
+        dwh_dwi = torch.abs(eta_o * eta_o * m.dot(wi, wh)) / torch.clamp(
+            sqrt_denom * sqrt_denom, min=1e-12
+        )
+        f, fp = lobe_f(lobe, wo, wi)
+        return wi, f, torch.where(ok, wh_pdf * dwh_dwi, 0.0), ok & fp
+    raise ValueError(k)
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,10 @@ Flags that are decisions, not defaults:
                 round each op separately. chip_smoke.py pins this by
                 requiring the kernels' t to be bit-equal to the plain
                 versions'.
-  no --use_fast_math, so division and sqrt stay IEEE-rounded.
+  -prec-div=true -prec-sqrt=true (nvcc's defaults without fast math, made
+                explicit): IEEE-rounded division and square root, as the
+                sphere test's quadratic and the plain versions round them.
+  no --use_fast_math.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
+    "-std=c++17", "-O3", "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
     "-shared", "-Xcompiler", "-fPIC",
 )
 
@@ -88,12 +91,17 @@ _F = ctypes.c_float
 def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare every entry point's C signature."""
     lib = ctypes.CDLL(str(build()))
-    lib.curry_tri_closest_hit.argtypes = [
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P,
-    ]
-    lib.curry_tri_closest_hit.restype = _I
-    lib.curry_tri_any_hit.argtypes = [
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P,
-    ]
-    lib.curry_tri_any_hit.restype = _I
+    # o, d, t_max, prims, caabb, saabb, slab; n, block, clusters_per_slab,
+    # n_slabs, use_supers; g2, g3, g5, t_scale (intersect.cu CURRY_TABLE_ARGS)
+    table_args = [_P] * 7 + [_I] * 5 + [_F] * 4
+    outputs = {  # + the output pointers and the stream
+        "curry_tri_closest_hit": 5,  # t_out, row_out, entered_out, improved_out
+        "curry_sphere_closest_hit": 3,  # t_out, row_out
+        "curry_tri_any_hit": 2,  # hit_out
+        "curry_sphere_any_hit": 2,
+    }
+    for name, n_ptrs in outputs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = table_args + [_P] * n_ptrs
+        fn.restype = _I
     return lib

@@ -17,7 +17,14 @@ table functions are copied as they are, so both packages build identical tables:
 tables. For tensors on the CPU they run the plain versions; for CUDA tensors
 they launch the CUDA kernels (and raise if those cannot run) — there is no
 fallback from the card to the plain code. `LAUNCHES` counts kernel launches
-per wrapper.
+per kernel, those of the sphere kernels (sphere_kernel.py) included.
+
+`stats=True` (K1b, the JAX kernel's roofline instrumentation) also returns
+per-ray (entered, improved) int32 counts: the cluster tiles each ray
+entered, and those that improved its best t. The JAX kernel counts per
+128/256-lane sub-group; each CUDA thread walks one ray, so the port counts
+per ray. The plain versions count the same (the any-hit one only entered
+tiles); no render path asks for them — they feed the bounds in PERF.md.
 """
 
 from __future__ import annotations
@@ -44,7 +51,8 @@ USE_SUPERS_MIN = 96  # enable the super-cluster level beyond this many clusters
 
 # Kernel launches per wrapper since the last reset (plain-version calls on
 # CPU tensors are not launches and are not counted).
-LAUNCHES = {"tri_closest": 0, "tri_any": 0}
+LAUNCHES = {"tri_closest": 0, "tri_closest_stats": 0, "tri_any": 0,
+            "sphere_closest": 0, "sphere_any": 0}
 
 
 def reset_launches() -> None:
@@ -319,16 +327,20 @@ def _walk(saabb, slab_aabb, cps, use_supers, o, d, t_bound, visit):
                 visit(j * cps + c, slab_gate, inv_d)
 
 
-def tri_closest_hit_plain(o, d, t_max, tris16, caabb, saabb, slab_aabb, *,
-                          block_t: int, clusters_per_slab: int, use_supers: bool):
-    """Plain version of the closest-hit kernel: per cluster, the rays that
-    enter its box test all block_t rows against their best t frozen at the
-    cluster's start; the tile's smallest t (lowest row on a tie) is accepted
-    on strict improvement, or at exactly t_max for a ray's first hit.
-    Returns (t (N,) f32, FLOAT_MAX on miss; row (N,) int32, -1 on miss)."""
-    kz, sx, sy, sz = ray_shear(d)
+def _closest_plain(tile, o, d, t_max, prims, caabb, saabb, slab_aabb, block, cps, use_supers,
+                   stats):
+    """The closest-hit walk of every plain version: per cluster, the rays
+    that enter its box test all `block` rows against their best t frozen at
+    the cluster's start — tile(rows, ids, t_best) → (len(ids), block) t,
+    FLOAT_MAX where there is no hit; the tile's smallest t (lowest row on a
+    tie) is accepted on strict improvement, or at exactly t_max for a ray's
+    first hit. Returns (t, row) and, with stats, per-ray (entered, improved)
+    int32 counts of the tiles each ray entered and of those that improved
+    its best t."""
     t_best = t_max.clone()
     idx = torch.full(t_max.shape, -1, dtype=torch.int32, device=o.device)
+    entered = torch.zeros(t_max.shape, dtype=torch.int32, device=o.device)
+    improved = torch.zeros_like(entered)
     fmax = float(FLOAT_MAX)
 
     def visit(c, gate, inv_d):
@@ -337,24 +349,27 @@ def tri_closest_hit_plain(o, d, t_max, tris16, caabb, saabb, slab_aabb, *,
         if ids.numel() == 0:
             return
         tb = t_best[ids]
-        t = _tile_test(tris16[c * block_t:(c + 1) * block_t], o[ids], kz[ids],
-                       sx[ids], sy[ids], sz[ids], tb)
+        t = tile(prims[c * block:(c + 1) * block], ids, tb)
         t_min, row = torch.min(t, dim=1)  # first index of the minimum
         cur = idx[ids]
         better = (t_min < tb) | ((t_min == tb) & (cur < 0) & (t_min < fmax))
         t_best[ids] = torch.where(better, t_min, tb)
-        idx[ids] = torch.where(better, (c * block_t + row).to(torch.int32), cur)
+        idx[ids] = torch.where(better, (c * block + row).to(torch.int32), cur)
+        if stats:
+            entered[ids] += 1
+            improved[ids] += better.to(torch.int32)
 
-    _walk(saabb, slab_aabb, clusters_per_slab, use_supers, o, d, lambda: t_best, visit)
-    return torch.where(idx >= 0, t_best, fmax), idx
+    _walk(saabb, slab_aabb, cps, use_supers, o, d, lambda: t_best, visit)
+    out = (torch.where(idx >= 0, t_best, fmax), idx)
+    return out + (entered, improved) if stats else out
 
 
-def tri_any_hit_plain(o, d, t_max, tris16, caabb, saabb, slab_aabb, *,
-                      block_t: int, clusters_per_slab: int, use_supers: bool):
-    """Plain version of the any-hit kernel: a ray stops at its first cluster
-    with any row hit within t_max. Returns (N,) bool."""
-    kz, sx, sy, sz = ray_shear(d)
+def _any_plain(tile, o, d, t_max, prims, caabb, saabb, slab_aabb, block, cps, use_supers, stats):
+    """The any-hit walk of every plain version: a ray stops at its first
+    cluster with any row hit within t_max. Returns (N,) bool and, with
+    stats, the per-ray int32 count of tiles entered."""
     hit = torch.zeros(t_max.shape, dtype=torch.bool, device=o.device)
+    entered = torch.zeros(t_max.shape, dtype=torch.int32, device=o.device)
     # rays already hit carry bound 0, which fails every later box test
     bound = lambda: torch.where(hit, 0.0, t_max)  # noqa: E731
 
@@ -363,23 +378,48 @@ def tri_any_hit_plain(o, d, t_max, tris16, caabb, saabb, slab_aabb, *,
         ids = torch.nonzero(enter).squeeze(1)
         if ids.numel() == 0:
             return
-        t = _tile_test(tris16[c * block_t:(c + 1) * block_t], o[ids], kz[ids],
-                       sx[ids], sy[ids], sz[ids], t_max[ids])
+        t = tile(prims[c * block:(c + 1) * block], ids, t_max[ids])
         hit[ids] = torch.any(t < float(FLOAT_MAX), dim=1)
+        if stats:
+            entered[ids] += 1
 
-    _walk(saabb, slab_aabb, clusters_per_slab, use_supers, o, d, bound, visit)
-    return hit
+    _walk(saabb, slab_aabb, cps, use_supers, o, d, bound, visit)
+    return (hit, entered) if stats else hit
+
+
+def _tri_tile(o, d):
+    kz, sx, sy, sz = ray_shear(d)
+    return lambda rows, ids, tb: _tile_test(rows, o[ids], kz[ids], sx[ids], sy[ids], sz[ids], tb)
+
+
+def tri_closest_hit_plain(o, d, t_max, tris16, caabb, saabb, slab_aabb, *,
+                          block_t: int, clusters_per_slab: int, use_supers: bool,
+                          stats: bool = False):
+    """Plain version of the closest-hit kernel (the walk of _closest_plain
+    with the watertight triangle test). Returns (t (N,) f32, FLOAT_MAX on
+    miss; row (N,) int32, -1 on miss), plus (entered, improved) with stats."""
+    return _closest_plain(_tri_tile(o, d), o, d, t_max, tris16, caabb, saabb, slab_aabb,
+                          block_t, clusters_per_slab, use_supers, stats)
+
+
+def tri_any_hit_plain(o, d, t_max, tris16, caabb, saabb, slab_aabb, *,
+                      block_t: int, clusters_per_slab: int, use_supers: bool,
+                      stats: bool = False):
+    """Plain version of the any-hit kernel. Returns (N,) bool, plus the
+    per-ray count of entered tiles with stats (the kernel has no stats)."""
+    return _any_plain(_tri_tile(o, d), o, d, t_max, tris16, caabb, saabb, slab_aabb,
+                      block_t, clusters_per_slab, use_supers, stats)
 
 
 # ---------------------------------------------------------------------------
 # wrappers
 
 
-def _check(o, d, t_max, tris16, caabb, saabb, slab_aabb, block_t, cps, use_supers):
+def _check(o, d, t_max, prims, caabb, saabb, slab_aabb, block, cps, use_supers):
     n = o.shape[0]
     if o.shape != (n, 3) or d.shape != (n, 3) or t_max.shape != (n,):
         raise ValueError(f"rays must be o, d (N,3) and t_max (N,); got {o.shape}, {d.shape}, {t_max.shape}")
-    tensors = (o, d, t_max, tris16, caabb, saabb, slab_aabb)
+    tensors = (o, d, t_max, prims, caabb, saabb, slab_aabb)
     if any(x.dtype != torch.float32 for x in tensors):
         raise TypeError("traversal inputs must be float32")
     if any(x.device != o.device for x in tensors):
@@ -388,81 +428,77 @@ def _check(o, d, t_max, tris16, caabb, saabb, slab_aabb, block_t, cps, use_super
     if caabb.shape != (nc, 8) or nc % cps or slab_aabb.shape != (nc // cps, 8):
         raise ValueError(f"table shapes disagree: caabb {tuple(caabb.shape)}, "
                          f"slab {tuple(slab_aabb.shape)}, clusters_per_slab {cps}")
-    if tris16.shape != (nc * block_t, TRI_COLS):
-        raise ValueError(f"tris16 must be ({nc * block_t}, {TRI_COLS}), got {tuple(tris16.shape)}")
+    if prims.shape != (nc * block, TRI_COLS):
+        raise ValueError(f"primitive table must be ({nc * block}, {TRI_COLS}), got {tuple(prims.shape)}")
     if use_supers and (cps % SUPER_G or saabb.shape[0] < nc // SUPER_G):
         raise ValueError("use_supers needs clusters_per_slab % SUPER_G == 0 and one super box per SUPER_G clusters")
+    if o.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no traversal kernel for device {o.device}")
 
 
-def _cuda_args(o, d, t_max, tris16, caabb, saabb, slab_aabb, block_t, cps, use_supers):
-    """Contiguous tensors (kept alive by the caller) + the C arguments."""
-    keep = [x.contiguous() for x in (o, d, t_max, tris16, caabb, saabb, slab_aabb)]
-    ptrs = [x.data_ptr() for x in keep]
-    ints = [o.shape[0], block_t, cps, slab_aabb.shape[0], int(bool(use_supers))]
-    consts = [float(_G2), float(_G3), float(_G5), float(_T_SCALE)]
-    return keep, ptrs + ints + consts
+def _launch(entry: str, counter: str, outs, o, d, t_max, prims, caabb, saabb, slab_aabb, block,
+            cps, use_supers):
+    """Launch one entry point of csrc/intersect.cu on CUDA tensors: the C
+    arguments are the contiguous inputs, the table sizes, the error-bound
+    constants, the output pointers (None → NULL) and the current stream.
+    Raises on a refused launch; counts the launch."""
+    from curry_pbrt_tpu_torch.ops.kernels.build import load_library
 
-
-def _raise_on(err: int, name: str):
+    if o.shape[0] == 0:
+        return
+    keep = [x.contiguous() for x in (o, d, t_max, prims, caabb, saabb, slab_aabb)]
+    args = [x.data_ptr() for x in keep]
+    args += [o.shape[0], block, cps, slab_aabb.shape[0], int(bool(use_supers))]
+    args += [float(_G2), float(_G3), float(_G5), float(_T_SCALE)]
+    args += [None if x is None else x.data_ptr() for x in outs]
+    err = getattr(load_library(), entry)(*args, torch.cuda.current_stream(o.device).cuda_stream)
+    # `keep` may be freed now: the caching allocator reuses its memory only
+    # for work queued after this launch on the same stream
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
+    LAUNCHES[counter] += 1
+
+
+def _closest_outputs(o, stats: bool):
+    """Uninitialised (t, row[, entered, improved]) outputs for N rays."""
+    n, dev = o.shape[0], o.device
+    outs = [torch.empty((n,), dtype=torch.float32, device=dev),
+            torch.empty((n,), dtype=torch.int32, device=dev)]
+    if stats:
+        outs += [torch.empty((n,), dtype=torch.int32, device=dev) for _ in range(2)]
+    return outs
 
 
 def tri_closest_hit_tables(o, d, t_max, tris16, caabb, saabb, slab_aabb, *,
-                           block_t: int, clusters_per_slab: int, use_supers: bool):
+                           block_t: int, clusters_per_slab: int, use_supers: bool,
+                           stats: bool = False):
     """Closest hit over TriTables tensors. o/d: (N,3), t_max: (N,) float32.
     Returns (t: (N,) f32, FLOAT_MAX on miss; row: (N,) int32 table row, -1
-    on miss). CPU tensors → plain version; CUDA tensors → the CUDA kernel."""
-    _check(o, d, t_max, tris16, caabb, saabb, slab_aabb, block_t, clusters_per_slab, use_supers)
+    on miss); with stats=True also per-ray (entered, improved) int32 tile
+    counts (the TPU kernel counts per lane sub-group; the port per ray).
+    CPU tensors → plain version; CUDA tensors → the CUDA kernel."""
+    args = (o, d, t_max, tris16, caabb, saabb, slab_aabb)
+    _check(*args, block_t, clusters_per_slab, use_supers)
     if o.device.type == "cpu":
-        return tri_closest_hit_plain(o, d, t_max, tris16, caabb, saabb, slab_aabb,
-                                     block_t=block_t, clusters_per_slab=clusters_per_slab,
-                                     use_supers=use_supers)
-    if o.device.type != "cuda":
-        raise ValueError(f"no traversal kernel for device {o.device}")
-    from curry_pbrt_tpu_torch.ops.kernels.build import load_library
-
-    lib = load_library()
-    n = o.shape[0]
-    t_out = torch.empty((n,), dtype=torch.float32, device=o.device)
-    row_out = torch.empty((n,), dtype=torch.int32, device=o.device)
-    if n == 0:
-        return t_out, row_out
-    keep, args = _cuda_args(o, d, t_max, tris16, caabb, saabb, slab_aabb, block_t,
-                            clusters_per_slab, use_supers)
-    stream = torch.cuda.current_stream(o.device).cuda_stream
-    err = lib.curry_tri_closest_hit(*args, t_out.data_ptr(), row_out.data_ptr(), stream)
-    _raise_on(err, "tri_closest_hit")
-    LAUNCHES["tri_closest"] += 1
-    del keep
-    return t_out, row_out
+        return tri_closest_hit_plain(*args, block_t=block_t, clusters_per_slab=clusters_per_slab,
+                                     use_supers=use_supers, stats=stats)
+    outs = _closest_outputs(o, stats)
+    _launch("curry_tri_closest_hit", "tri_closest_stats" if stats else "tri_closest",
+            outs if stats else outs + [None, None], *args, block_t, clusters_per_slab, use_supers)
+    return tuple(outs)
 
 
 def tri_any_hit_tables(o, d, t_max, tris16, caabb, saabb, slab_aabb, *,
                        block_t: int, clusters_per_slab: int, use_supers: bool):
     """Any-hit (shadow) test over TriTables tensors → (N,) bool. CPU tensors
     → plain version; CUDA tensors → the CUDA kernel."""
-    _check(o, d, t_max, tris16, caabb, saabb, slab_aabb, block_t, clusters_per_slab, use_supers)
+    args = (o, d, t_max, tris16, caabb, saabb, slab_aabb)
+    _check(*args, block_t, clusters_per_slab, use_supers)
     if o.device.type == "cpu":
-        return tri_any_hit_plain(o, d, t_max, tris16, caabb, saabb, slab_aabb,
-                                 block_t=block_t, clusters_per_slab=clusters_per_slab,
+        return tri_any_hit_plain(*args, block_t=block_t, clusters_per_slab=clusters_per_slab,
                                  use_supers=use_supers)
-    if o.device.type != "cuda":
-        raise ValueError(f"no traversal kernel for device {o.device}")
-    from curry_pbrt_tpu_torch.ops.kernels.build import load_library
-
-    lib = load_library()
-    n = o.shape[0]
-    hit = torch.empty((n,), dtype=torch.bool, device=o.device)
-    if n == 0:
-        return hit
-    keep, args = _cuda_args(o, d, t_max, tris16, caabb, saabb, slab_aabb, block_t,
-                            clusters_per_slab, use_supers)
-    stream = torch.cuda.current_stream(o.device).cuda_stream
-    err = lib.curry_tri_any_hit(*args, hit.data_ptr(), stream)
-    _raise_on(err, "tri_any_hit")
-    LAUNCHES["tri_any"] += 1
-    del keep
+    hit = torch.empty((o.shape[0],), dtype=torch.bool, device=o.device)
+    _launch("curry_tri_any_hit", "tri_any", [hit], *args, block_t, clusters_per_slab, use_supers)
     return hit
 
 

@@ -87,11 +87,61 @@ def to_world(w, x, y, z):
 
 
 # ---------------------------------------------------------------------------
-# local-frame trig (z is the normal)
+# local-frame trig (z is the normal) — reference math/mod.rs:152-201
 
 
 def cos_theta(w):
     return w[..., 2]
+
+
+def cos2_theta(w):
+    return w[..., 2] * w[..., 2]
+
+
+def sin2_theta(w):
+    return torch.clamp(1.0 - cos2_theta(w), min=0.0)
+
+
+def sin_theta(w):
+    return safe_sqrt(sin2_theta(w))
+
+
+def tan_theta(w):
+    return sin_theta(w) / cos_theta(w)
+
+
+def tan2_theta(w):
+    return sin2_theta(w) / cos2_theta(w)
+
+
+def cos_phi(w):
+    st = sin_theta(w)
+    return torch.where(st == 0.0, 1.0,
+                       torch.clamp(w[..., 0] / torch.where(st == 0, 1.0, st), -1.0, 1.0))
+
+
+def sin_phi(w):
+    st = sin_theta(w)
+    return torch.where(st == 0.0, 0.0,
+                       torch.clamp(w[..., 1] / torch.where(st == 0, 1.0, st), -1.0, 1.0))
+
+
+def cos2_phi(w):
+    c = cos_phi(w)
+    return c * c
+
+
+def sin2_phi(w):
+    s = sin_phi(w)
+    return s * s
+
+
+def cos_delta_phi(wa, wb):
+    """Azimuth-difference cosine (reference math/mod.rs:191-198)."""
+    num = wa[..., 0] * wb[..., 0] + wa[..., 1] * wb[..., 1]
+    den = torch.sqrt((wa[..., 0] * wa[..., 0] + wa[..., 1] * wa[..., 1])
+                     * (wb[..., 0] * wb[..., 0] + wb[..., 1] * wb[..., 1]))
+    return torch.clamp(num / torch.where(den == 0, 1.0, den), -1.0, 1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -55,11 +55,11 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def make_shade_context(scene: Scene, device) -> I.ShadeContext:
+def make_shade_context(scene: Scene, device, ray_sort: Optional[bool] = None) -> I.ShadeContext:
     """Build the static shading context over the kernel intersectors."""
     cam_pos = np.asarray(scene.camera.camera_to_world)[:3, 3]
     inter, pred, tprim = make_kernel_intersectors(
-        scene.tris, scene.spheres, device, view_origin=cam_pos
+        scene.tris, scene.spheres, device, view_origin=cam_pos, ray_sort=ray_sort
     )
     # only materials actually referenced by primitives participate in shading
     used_ids = set(np.asarray(scene.prim_mat).tolist()) - {-1}
@@ -67,7 +67,7 @@ def make_shade_context(scene: Scene, device) -> I.ShadeContext:
     all_delta = I.mat_all_delta_table(scene.materials, scene.material_registry)
     return I.ShadeContext(
         materials=used,
-        families=build_families(used),
+        families=build_families(used, n_mats=all_delta.shape[0], device=device),
         registry=scene.material_registry,
         lights=scene.lights,
         dev_lights=scene.lights.on(device),
@@ -94,7 +94,10 @@ class RenderPlan:
     device: torch.device
 
 
-def plan_render(scene: Scene, device="cuda", chunk_pixels: Optional[int] = None) -> RenderPlan:
+def plan_render(scene: Scene, device="cuda", chunk_pixels: Optional[int] = None,
+                ray_sort: Optional[bool] = None) -> RenderPlan:
+    """ray_sort: the aggregate's per-traversal ray sort (None: on beyond 512
+    triangle clusters, as in the JAX package; True / False force it)."""
     device = resolve_device(device)
     if scene.settings.integrator != "path":
         raise NotImplementedError(
@@ -116,7 +119,7 @@ def plan_render(scene: Scene, device="cuda", chunk_pixels: Optional[int] = None)
         chunk_pixels = max(min(CHUNK_RAYS[device.type] // max(spp, 1), n_pixels), 1)
     return RenderPlan(
         scene=scene,
-        ctx=make_shade_context(scene, device),
+        ctx=make_shade_context(scene, device, ray_sort),
         cfg=cfg,
         perms=perms,
         pixel_offsets=offs,
@@ -179,15 +182,27 @@ def render_scene(
     chunk_pixels: Optional[int] = None,
     show_progress: bool = True,
     count_rays: bool = False,
+    ray_sort: Optional[bool] = None,
 ):
     """Full render → (H, W, 3) float32 numpy radiance image; with
     count_rays=True → (image, traced segments as a Python int).
 
     params: the scene's params tree (scene.init_params when None), with
-    tensor or numpy leaves; it is moved to `device`."""
-    plan = plan_render(scene, device, chunk_pixels)
+    tensor or numpy leaves; it is moved to `device`. ray_sort: see
+    plan_render."""
+    plan = plan_render(scene, device, chunk_pixels, ray_sort)
+    return render_plan(plan, params, show_progress=show_progress, count_rays=count_rays)
+
+
+def render_plan(plan: RenderPlan, params=None, show_progress: bool = True,
+                count_rays: bool = False):
+    """render_scene over an existing plan (its tables, shading context and
+    sampler set-up), so that several renders of one scene plan it once."""
+    scene = plan.scene
     dev = plan.device
     params = params_from_numpy(scene.init_params if params is None else params, dev)
+    for fam in plan.ctx.families:  # member constants stacked once per call
+        fam.stack_params(params)
     xres, yres = scene.settings.resolution
     po, px, n_pixels = _chunked_pixel_arrays(plan)
     C = plan.chunk_pixels

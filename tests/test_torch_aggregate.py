@@ -22,6 +22,8 @@ from curry_pbrt_tpu.sceneio.compiler import compile_scene_file as jax_compile
 from curry_pbrt_tpu_torch.dtypes import FLOAT_MAX
 from curry_pbrt_tpu_torch.models.camera import generate_rays
 from curry_pbrt_tpu_torch.ops.intersect import offset_point_by_error
+from curry_pbrt_tpu_torch.ops import intersect as isect
+from curry_pbrt_tpu_torch.ops.kernels import aggregate as AG
 from curry_pbrt_tpu_torch.ops.kernels.aggregate import make_kernel_intersectors
 from curry_pbrt_tpu_torch.sceneio.compiler import compile_scene_file
 
@@ -110,3 +112,59 @@ def test_geometry_is_detached(both):
     o = o.clone().requires_grad_(True)
     h = tx[0](o, d, t_max)
     assert not h.t.requires_grad and not h.p.requires_grad
+
+
+def _jax_sort_key(o, d, t_max, lo3, ext3):
+    """The JAX package's "oct_cell" key (ops/pallas/aggregate.py:215-246),
+    in numpy uint32."""
+    q = np.clip((o - lo3) / ext3 * np.float32(8.0), 0.0, 7.0).astype(np.uint32)
+
+    def spread3(x):
+        x = (x | (x << np.uint32(4))) & np.uint32(0x0C3)
+        return (x | (x << np.uint32(2))) & np.uint32(0x249)
+
+    cell = (spread3(q[:, 0]) << np.uint32(2)) | (spread3(q[:, 1]) << np.uint32(1)) | spread3(q[:, 2])
+    octant = ((d[:, 0] < 0).astype(np.uint32) * 4 + (d[:, 1] < 0).astype(np.uint32) * 2
+              + (d[:, 2] < 0).astype(np.uint32))
+    return np.where(t_max > 0, octant * np.uint32(512) + cell, np.uint32(1 << 14))
+
+
+def test_sort_key_matches_jax():
+    rng = np.random.default_rng(4)
+    o = rng.uniform(-6, 6, (4096, 3)).astype(np.float32)  # many outside the box
+    d = rng.normal(size=(4096, 3)).astype(np.float32)
+    d[::5, 1] = 0.0
+    t_max = np.where(rng.uniform(size=4096) < 0.2, 0.0, 1e30).astype(np.float32)
+    lo3 = np.array([-2.0, -1.5, -3.0], np.float32)
+    ext3 = np.array([4.0, 3.0, 5.5], np.float32)
+    key = AG.sort_key(*(torch.from_numpy(a) for a in (o, d, t_max, lo3, ext3)))
+    np.testing.assert_array_equal(key.numpy(), _jax_sort_key(o, d, t_max, lo3, ext3))
+
+
+def test_ray_sort_changes_no_result():
+    """Sorted and unsorted traversals (forced on and off, on a mesh that is
+    not a small scene) give bit-equal hits, shadow tests and (t, prim)."""
+    rng = np.random.default_rng(8)
+    n_tris = 2000
+    p0 = rng.uniform(-6, 6, (n_tris, 3)).astype(np.float32)
+    p1 = p0 + rng.normal(0, 0.5, (n_tris, 3)).astype(np.float32)
+    p2 = p0 + rng.normal(0, 0.5, (n_tris, 3)).astype(np.float32)
+    tris = isect.TriangleArrays(p0, p1, p2, np.arange(n_tris, dtype=np.int32))
+    z = np.zeros((1, 4, 4), np.float32)
+    sph = isect.SphereArrays(z, z, np.zeros(1, np.float32), np.full(1, -1, np.int32))
+    o = torch.from_numpy(rng.uniform(-7, 7, (1024, 3)).astype(np.float32))
+    d = torch.from_numpy(rng.normal(size=(1024, 3)).astype(np.float32))
+    d = d / d.norm(dim=-1, keepdim=True)
+    t_max = torch.full((1024,), float(FLOAT_MAX))
+    t_max[::6] = 0.0
+    on = make_kernel_intersectors(tris, sph, "cpu", view_origin=np.zeros(3), ray_sort=True)
+    off = make_kernel_intersectors(tris, sph, "cpu", view_origin=np.zeros(3), ray_sort=False)
+    AG.RAY_SORTS["traversals"] = 0
+    h_on, h_off = on[0](o, d, t_max), off[0](o, d, t_max)
+    for a, b in zip(h_on, h_off):
+        assert torch.equal(a, b)
+    assert (h_on.prim >= 0).sum() > 100
+    assert torch.equal(on[1](o, d, t_max * 0.5), off[1](o, d, t_max * 0.5))
+    for a, b in zip(on[2](o, d, t_max), off[2](o, d, t_max)):
+        assert torch.equal(a, b)
+    assert AG.RAY_SORTS["traversals"] == 3  # closest, shadow, (t, prim): each sorted once

@@ -152,3 +152,34 @@ def test_wrapper_rejects_bad_tables():
     with pytest.raises(TypeError):
         TK.tri_any_hit_tables(*args, block_t=8, clusters_per_slab=tab.clusters_per_slab,
                               use_supers=False)
+
+
+def test_stats_do_not_change_results_and_bound_the_tpu_counts():
+    """stats=True (the bound's instrumentation) returns the same (t, row)
+    plus per-ray (entered, improved) counts with the JAX test's invariants
+    (tests/test_pallas_intersect.py:409-440). The JAX kernel counts per ray
+    block (one sub-group here), the port per ray, so each ray's counts are
+    at most its block's: a ray enters only tiles its block entered."""
+    o, d, t_max, p0, p1, p2 = _scene(51, 300, 900, spread=4.0)
+    tab = _tables(p0, p1, p2, 64, 256, True)
+    arrs = (o, d, t_max, tab.tris16, tab.cluster_aabbs, tab.super_aabbs, tab.slab_aabbs)
+    kw = dict(block_t=tab.block_t, clusters_per_slab=tab.clusters_per_slab,
+              use_supers=tab.use_supers)
+    targs = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrs]
+    t0, i0 = TK.tri_closest_hit_tables(*targs, **kw)
+    t1, i1, entered, improved = TK.tri_closest_hit_tables(*targs, **kw, stats=True)
+    assert torch.equal(t0, t1) and torch.equal(i0, i1)
+    entered, improved = entered.numpy(), improved.numpy()
+    assert entered.sum() > 0 and improved.sum() > 0
+    assert entered.max() <= tab.cluster_aabbs.shape[0]
+    assert (improved <= entered).all()
+    np.testing.assert_array_equal(improved > 0, i1.numpy() >= 0)
+    assert entered[t_max == 0].sum() == 0  # dead lanes enter nothing
+    _, _, j_entered, j_improved = JK.tri_closest_hit_tables(
+        *map(jnp.asarray, arrs), interpret=True, block_r=512, stats=True, **kw)
+    assert (entered <= np.asarray(j_entered)).all()
+    assert (improved <= np.asarray(j_improved)).all()
+    # the any-hit plain version counts the tiles it entered up to its first hit
+    hit, any_entered = TK.tri_any_hit_plain(*targs, **kw, stats=True)
+    assert torch.equal(hit, TK.tri_any_hit_tables(*targs, **kw))
+    assert (any_entered.numpy() <= entered).all()

@@ -9,7 +9,13 @@ package.
     exported as numpy and loaded with params_from_numpy), and their
     traced-segment counts;
   - the port against tests/goldens/{cornell,cornell_tex}.npy (JAX CPU
-    renders at 32², 4 spp, depth 3 through the brute intersector).
+    renders at 32², 4 spp, depth 3 through the brute intersector) and
+    tests/goldens/mesh10k.npy (32², 4 spp, depth 4: plastic's GGX lobe,
+    supers and kd cells);
+  - a generated field of 300 spheres, one matte material each (the sphere
+    cluster kernel from 129 spheres up, a 300-member material family), at
+    16², 2 spp, depth 2 against JAX render_scene(intersector="pallas"),
+    with its segment count.
 
 Tolerance: allclose(rtol=1e-4, atol=1e-4), the JAX package's own
 cross-backend tolerance (tests/test_golden.py), with at most 1% of the
@@ -71,9 +77,9 @@ def test_port_matches_jax_kernel_path(name):
     assert segments == int(_jax_segments(js))
 
 
-@pytest.mark.parametrize("name", ["cornell", "cornell_tex"])
-def test_port_matches_golden(name):
-    ov = {"resolution": (32, 32), "spp": 4, "max_depth": 3}
+@pytest.mark.parametrize("name,depth", [("cornell", 3), ("cornell_tex", 3), ("mesh10k", 4)])
+def test_port_matches_golden(name, depth):
+    ov = {"resolution": (32, 32), "spp": 4, "max_depth": depth}
     ps = compile_scene_file(REPO / "scenes" / f"{name}.pbrt", overrides=ov)
     img = render_scene(ps, device="cpu", show_progress=False)
     _assert_image_close(img, np.load(REPO / "tests" / "goldens" / f"{name}.npy"))
@@ -119,3 +125,49 @@ def test_cli_renders_a_png(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             main([str(REPO / "scenes" / "cornell.pbrt"), "-o", str(out), "--quiet"])
+
+
+def _sphere_field(path, n, seed):
+    """A field of n spheres, each with its own matte material, under a
+    distant light and an area lamp, in the format of
+    tools/make_sphere_scene.py."""
+    rng = np.random.default_rng(seed)
+    lines = [
+        "LookAt 0 0 -40  0 0 0  0 1 0",
+        'Camera "perspective" "float fov" [50]',
+        'Sampler "halton" "integer pixelsamples" [2]',
+        'Film "image" "integer xresolution" [16] "integer yresolution" [16]',
+        'Integrator "path" "integer maxdepth" [2]',
+        "WorldBegin",
+        'LightSource "distant" "point from" [-40 60 -80] "point to" [0 0 0] "rgb L" [2.5 2.4 2.2]',
+        "AttributeBegin",
+        'AreaLightSource "diffuse" "rgb L" [12 11 9]',
+        'Material "matte"',
+        'Shape "trianglemesh" "integer indices" [0 1 2 2 3 0]',
+        '  "point P" [-6 23 -6  6 23 -6  6 23 6  -6 23 6]',
+        "AttributeEnd",
+    ]
+    for _ in range(n):
+        x, y, z = rng.uniform(-15, 15, 3)
+        kd = rng.uniform(0.2, 0.8, 3)
+        lines += [
+            "AttributeBegin",
+            f'Material "matte" "rgb Kd" [{kd[0]:.3f} {kd[1]:.3f} {kd[2]:.3f}]',
+            f"Translate {x:.4f} {y:.4f} {z:.4f}",
+            f'Shape "sphere" "float radius" [{rng.uniform(0.25, 1.2):.4f}]',
+            "AttributeEnd",
+        ]
+    path.write_text("\n".join(lines) + "\n")
+    return path
+
+
+def test_sphere_field_matches_jax(tmp_path):
+    path = _sphere_field(tmp_path / "field.pbrt", 300, seed=21)
+    js, ps = jax_compile(path), compile_scene_file(path)
+    ref = jax_render(js, show_progress=False, intersector="pallas")
+    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, js.init_params), "cpu")
+    img, segments = render_scene(ps, params=params, device="cpu", show_progress=False,
+                                 count_rays=True)
+    assert ref.mean() > 0.01  # spheres really lit
+    _assert_image_close(img, ref)
+    assert segments == int(_jax_segments(js))

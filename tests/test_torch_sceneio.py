@@ -33,7 +33,8 @@ def _assert_tree_equal(a, b, path=""):
     np.testing.assert_array_equal(a, b, err_msg=path)
 
 
-@pytest.mark.parametrize("name", ["cornell", "cornell_tex", "spheres", "mesh10k"])
+@pytest.mark.parametrize("name", ["cornell", "cornell_tex", "spheres", "mesh10k", "mesh100k",
+                                  "spherefield10k"])
 def test_compiled_arrays_identical(name):
     ov = {"resolution": (64, 48), "spp": 3, "max_depth": 4, "seed": 7}
     js = jax_compile(SCENES / f"{name}.pbrt", overrides=ov)
@@ -138,3 +139,26 @@ def test_png_writer_reads_back_in_pil(tmp_path):
     write_png(tmp_path / "w.png", img)
     np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "w.png")), img)
     np.testing.assert_array_equal(read_png(tmp_path / "w.png"), img)
+
+
+def test_params_travel_together_and_keep_gradients():
+    """Leaves that need a copy are moved as one buffer per dtype (views of
+    it, values unchanged); a leaf that requires grad is moved on its own and
+    stays differentiable."""
+    import torch
+
+    kd = torch.tensor([0.2, 0.3, 0.4], requires_grad=True)
+    tree = {"materials": {"0": {"Kd": kd, "sigma": np.float32(2.0)},
+                          "1": {"Kd": np.array([0.5, 0.6, 0.7], np.float32)}},
+            "light_L": np.ones((2, 3), np.float32), "ids": np.arange(3, dtype=np.int32)}
+    out = params_from_numpy(tree, "cpu")
+    assert out["materials"]["0"]["Kd"] is kd
+    np.testing.assert_array_equal(out["materials"]["1"]["Kd"].numpy(),
+                                  np.array([0.5, 0.6, 0.7], np.float32))
+    assert out["materials"]["0"]["sigma"].shape == () and float(out["materials"]["0"]["sigma"]) == 2.0
+    assert out["light_L"].shape == (2, 3) and out["ids"].dtype == torch.int32
+    # the float32 leaves share one buffer
+    assert out["light_L"].untyped_storage().data_ptr() == \
+        out["materials"]["1"]["Kd"].untyped_storage().data_ptr()
+    (out["materials"]["0"]["Kd"].sum() * 2.0).backward()
+    np.testing.assert_array_equal(kd.grad.numpy(), [2.0, 2.0, 2.0])
