@@ -48,7 +48,20 @@ non-zero and no result line is printed:
                least time the card could take (bytes or operations, from
                the entered-tile counts of K1's stats and of the plain
                versions);
-and then prints the per-kernel JSON line and, last, the device line.
+  8. probes  — the traversal-analysis path (curry_pbrt_tpu_torch/tools/):
+               the group kernel K4 (closest and any hit) against its plain
+               version and against K1 / K2 on the phase-3 soup at 32k rays
+               (t bit-equal, any-hit equal, rows and prims equal up to
+               exact-t ties); the K1 / K4 A/B on mesh10k and mesh100k at the
+               render chunk (4,194,304 rays), depth 6, the same checks per
+               bounce and each kernel's ms; K4 at mesh10k's bounce 2 against
+               its plain version, with its bound from K1's entered tiles;
+               the roofline on cornell_tex and mesh10k; the granularity
+               probe on mesh10k; the slab-grid probe P at the JAX shape and
+               at 16,384 blocks x 7 slabs against its plain version (rtol
+               1e-5);
+and then prints the per-kernel JSON line and, last, the device line. Each
+phase prints its seconds.
 
 Imports nothing of JAX. Run from the repository root's checkout.
 """
@@ -62,6 +75,23 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
+if not (REPO / "curry_pbrt_tpu_torch" / "csrc").is_dir():
+    raise SystemExit("chip_smoke: the curry_pbrt_tpu_torch package is not beside this script")
+sys.path.insert(0, str(REPO))
+
+# The least time the card could take (the larger of bytes over the memory
+# rate and operations over the f32 rate of an H100 SXM, NVIDIA's data sheet
+# at the 700 W limit), shared with the roofline tool.
+from curry_pbrt_tpu_torch.tools.probe_group_kernel import non_tie_mismatches, row_t  # noqa: E402
+from curry_pbrt_tpu_torch.tools.roofline import (  # noqa: E402
+    SPHERE_TEST_OPS,
+    TRI_TEST_OPS,
+    bound,
+    cuda_ms,
+    least_ms,
+    nvidia_smi,
+    table_bytes,
+)
 
 # JAX anchors (hardware-independent: traced segments and image checksum of
 # the JAX package's bench run, BENCH_r05.json)
@@ -81,56 +111,34 @@ SLICE_RTOL = SLICE_ATOL = 1e-4
 SLICE_MAX_OUTLIER_FRAC = 0.01
 SLICE_SUM_RTOL = 1e-3
 
-# The least time the card could take: the larger of bytes over the memory
-# rate and operations over the f32 rate of an H100 SXM (NVIDIA's data
-# sheet, at the 700 W limit).
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-# f32 operations per test, counted in csrc/intersect.cuh (add, sub, mul,
-# div, sqrt, abs, min, max; comparisons and selects not counted)
-TRI_TEST_OPS, SPHERE_TEST_OPS, BOX_TEST_OPS = 84, 73, 25
-RAY_IN_BYTES = 28  # o, d (12 B each) and t_max (4 B)
+PROBE_DEPTH = 6  # bounces of the phase-8 workload
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
+class Phases:
+    """Prints each phase's seconds as the next one starts."""
+
+    def __init__(self):
+        self.name, self.t0 = None, time.time()
+
+    def start(self, name=None):
+        if self.name:
+            log(f"[seconds] phase {self.name}: {time.time() - self.t0:.1f} s")
+        self.name, self.t0 = name, time.time()
 
 
-def cuda_ms(fn, reps: int) -> float:
-    import torch
+def soup_tris(n_tris: int, seed: int):
+    """A random soup of n_tris small triangles in a 16-unit box."""
+    import numpy as np
 
-    fn()  # warm-up
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
-def bound(n_rays: int, out_bytes_per_ray: int, table_bytes: int, entered: int, block: int,
-          test_ops: int):
-    """(bound ms, "bytes" or "operations"): each input byte read once and
-    each output byte written once; the tests these inputs need — every
-    entered tile's rows and its box test (the failed box tests of clusters,
-    supers and slabs are not counted, so this is a lower bound)."""
-    t_bytes = (n_rays * (RAY_IN_BYTES + out_bytes_per_ray) + table_bytes) / HBM_BYTES_PER_S
-    t_ops = entered * (block * test_ops + BOX_TEST_OPS) / F32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def table_bytes(*tensors) -> int:
-    return sum(x.numel() * x.element_size() for x in tensors)
+    rng = np.random.default_rng(seed)
+    p0 = rng.uniform(-8, 8, (n_tris, 3)).astype(np.float32)
+    p1 = p0 + rng.normal(0, 0.6, (n_tris, 3)).astype(np.float32)
+    p2 = p0 + rng.normal(0, 0.6, (n_tris, 3)).astype(np.float32)
+    return p0, p1, p2, np.arange(n_tris, dtype=np.int32)
 
 
 def soup_tables(n_tris: int, seed: int):
@@ -138,12 +146,8 @@ def soup_tables(n_tris: int, seed: int):
 
     from curry_pbrt_tpu_torch.ops.kernels.intersect_kernel import build_tri_tables
 
-    rng = np.random.default_rng(seed)
-    p0 = rng.uniform(-8, 8, (n_tris, 3)).astype(np.float32)
-    p1 = p0 + rng.normal(0, 0.6, (n_tris, 3)).astype(np.float32)
-    p2 = p0 + rng.normal(0, 0.6, (n_tris, 3)).astype(np.float32)
-    return build_tri_tables(p0, p1, p2, np.arange(n_tris, dtype=np.int32), block_t=64,
-                            view_origin=np.zeros(3), clusters_per_slab=16, use_supers=True)
+    return build_tri_tables(*soup_tris(n_tris, seed), block_t=64, view_origin=np.zeros(3),
+                            clusters_per_slab=16, use_supers=True)
 
 
 def sphere_soup_tables(n: int, seed: int):
@@ -184,20 +188,6 @@ def make_rays(n: int, seed: int, center, spread: float, device):
     return tuple(torch.from_numpy(a).to(device) for a in (o, d, t_max))
 
 
-def row_t(tables, o, d, t_max, rows):
-    """t of each ray against one given table row (-1 → FLOAT_MAX)."""
-    import torch
-
-    from curry_pbrt_tpu_torch.dtypes import FLOAT_MAX
-    from curry_pbrt_tpu_torch.ops.intersect import ray_shear, watertight_core
-
-    tri = tables.tris16[rows.clamp(min=0).long()]
-    kz, sx, sy, sz = ray_shear(d)
-    t, _, ok = watertight_core(o, kz, sx, sy, sz, t_max, tri[:, 0:3], tri[:, 3:6], tri[:, 6:9],
-                               with_bary=False)
-    return torch.where(ok & (tri[:, 9] > 0) & (rows >= 0), t, float(FLOAT_MAX))
-
-
 def sphere_row_t(tables, o, d, t_max, rows):
     """t of each ray against one given sphere row (-1 → FLOAT_MAX)."""
     import torch
@@ -236,8 +226,8 @@ def check_kernels(name, tables, rays, K, plain, timing: bool):
                              f"(max rel {rel:.3g})")
     diff = r_k != r_p
     if diff.any():  # allowed only where both rows give the same t (a tie)
-        tk = row_t(tables, o[diff], d[diff], t_max[diff], r_k[diff])
-        tp = row_t(tables, o[diff], d[diff], t_max[diff], r_p[diff])
+        tk = row_t(tables.tris16, o[diff], d[diff], t_max[diff], r_k[diff])
+        tp = row_t(tables.tris16, o[diff], d[diff], t_max[diff], r_p[diff])
         if not (torch.equal(tk, tp) and torch.equal(tk, t_k[diff])):
             raise AssertionError(f"{name}: K1 rows differ beyond exact-t ties")
     dead = t_max == 0
@@ -339,19 +329,74 @@ def check_stats(name, tables, rays, K, plain, reps=None):
     return out
 
 
+def check_group(name, gtab, ktab, gprim, kprim, rays, G, t_any=None, plain_reps=None):
+    """K4 (closest and any hit) against its plain version and against K1 /
+    K2 (ktab) on one ray batch: t bit-equal to the plain version's and to
+    K1's, any-hit equal to both, rows equal to the plain version's up to
+    exact-t ties, prims equal to K1's (through each table's prim) up to
+    exact-t ties. t_any: the any-hit bound (t_max by default). Returns the
+    errors, the plain versions' group-granular entered tiles and, with
+    plain_reps, the plain versions' ms."""
+    import torch
+
+    o, d, t_max = rays
+    t_any = t_max if t_any is None else t_any
+    kw = G.group_kw(gtab)
+    c_args = (o, d, t_max, gtab.tris16, gtab.caabb, gtab.saabb, gtab.slab_aabb)
+    a_args = (o, d, t_any) + c_args[3:]
+    t4, r4 = G.tri_closest_hit_groups(*c_args, **kw)
+    h4 = G.tri_any_hit_groups(*a_args, **kw)
+    t1, r1 = ktab.closest(o, d, t_max)
+    h2 = ktab.any_hit(o, d, t_any)
+    torch.cuda.synchronize()
+    t_p, r_p, ent8, _ = G.tri_closest_hit_groups_plain(*c_args, **kw, stats=True)
+    h_p, any_ent8 = G.tri_any_hit_groups_plain(*a_args, **kw, stats=True)
+    if not torch.equal(t4, t_p):
+        raise AssertionError(f"{name}: K4 t not bit-equal to its plain version on "
+                             f"{int((t4 != t_p).sum())} rays")
+    if not (torch.equal(h4, h_p) and torch.equal(h4, h2)):
+        raise AssertionError(f"{name}: K4 any-hit differs from its plain version on "
+                             f"{int((h4 != h_p).sum())} rays, from K2 on {int((h4 != h2).sum())}")
+    if not torch.equal(t4, t1):
+        raise AssertionError(f"{name}: K4 t not bit-equal to K1's on {int((t4 != t1).sum())} rays")
+    diff = r4 != r_p
+    if diff.any():  # allowed only where both rows give the same t (a tie)
+        tk = row_t(gtab.tris16, o[diff], d[diff], t_max[diff], r4[diff])
+        tp = row_t(gtab.tris16, o[diff], d[diff], t_max[diff], r_p[diff])
+        if not (torch.equal(tk, tp) and torch.equal(tk, t4[diff])):
+            raise AssertionError(f"{name}: K4 rows differ from the plain version's beyond ties")
+    n_mis, n_bad = non_tie_mismatches(ktab, kprim, r1, gtab, gprim, r4, o, d, t_max)
+    if n_bad:
+        raise AssertionError(f"{name}: K4 prims differ from K1's beyond exact-t ties on {n_bad} rays")
+    if (r4[t_max == 0] >= 0).any() or h4[t_any == 0].any():
+        raise AssertionError(f"{name}: a dead lane (t_max 0) reported a K4 hit")
+    hit = r4 >= 0
+    log(f"  {name}: {o.shape[0]} rays, {int(hit.sum())} closest hits, {int(h4.sum())} any hits, "
+        f"{int(diff.sum())} tie rows vs plain, {n_mis} tie prims vs K1 — K4 t bit-equal to its "
+        f"plain version and to K1, any-hit equal to its plain version and to K2")
+    out = {"max_abs_err": (t4[hit] - t_p[hit]).abs().max().item() if hit.any() else 0.0,
+           "any_max_abs_err": (h4.float() - h_p.float()).abs().max().item() if h4.numel() else 0.0,
+           "group_entered": int(ent8.sum()), "group_any_entered": int(any_ent8.sum()),
+           "n": o.shape[0], "table_bytes": table_bytes(*c_args[3:])}
+    if plain_reps:
+        out["plain_ms"] = cuda_ms(lambda: G.tri_closest_hit_groups_plain(*c_args, **kw), plain_reps)
+        out["any_plain_ms"] = cuda_ms(lambda: G.tri_any_hit_groups_plain(*a_args, **kw),
+                                      plain_reps)
+    return out
+
+
 def main() -> int:
     t_start = time.time()
-    if not (REPO / "curry_pbrt_tpu_torch" / "csrc").is_dir():
-        raise SystemExit("chip_smoke: the curry_pbrt_tpu_torch package is not beside this script")
     import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False — this needs a GPU")
-    sys.path.insert(0, str(REPO))
+    phases = Phases()
 
     # ---- 1. device
-    card = card_line()
+    phases.start("1 device")
+    card = nvidia_smi("name,power.limit")
     log(card)  # the card's name and power limit, as nvidia-smi gives them
     from curry_pbrt_tpu_torch.ops.kernels import build
 
@@ -362,12 +407,14 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     # ---- 2. build
+    phases.start("2 build")
     t0 = time.time()
     build.build(verbose=True)
     build.load_library()
     log(f"[build] nvcc {' '.join(build.NVCC_FLAGS)}: {time.time() - t0:.1f} s")
 
     # ---- 3. kernels against their plain versions
+    phases.start("3 kernels")
     from curry_pbrt_tpu_torch.ops.kernels import aggregate as AG
     from curry_pbrt_tpu_torch.ops.kernels import intersect_kernel as K
     from curry_pbrt_tpu_torch.ops.kernels import sphere_kernel as S
@@ -407,6 +454,7 @@ def main() -> int:
     head_any_entered = int(head_any_entered.sum())
 
     # ---- 3b. the sphere kernels against their plain versions
+    phases.start("3b spheres")
     scenes = {}  # config name → (compiled scene, compile seconds), compiled once
 
     def config_scene(name):
@@ -443,6 +491,7 @@ def main() -> int:
             f"sphere soup/{n}", qtab, make_rays(n, 40 + n % 79, (0, 0, 0), 14.0, dev), S, plain)
 
     # ---- 3c. K1 stats against the plain stats
+    phases.start("3c stats")
     t0 = time.time()
     m100 = config_scene("mesh100k_512")
     m100_cam = np.asarray(m100.camera.camera_to_world)[:3, 3]
@@ -455,6 +504,7 @@ def main() -> int:
     check_stats("mesh100k/262144", mtab, make_rays(1 << 18, 51, (0, 0.5, 0), 3.0, dev), K, plain)
 
     # ---- 4. the slice at test size, on the card
+    phases.start("4 slice")
     from curry_pbrt_tpu_torch.render import plan_render, render_plan, render_scene
 
     calls = {"plain": 0}
@@ -497,6 +547,7 @@ def main() -> int:
         raise AssertionError("the card's slice render disagrees with the port's CPU render")
 
     # ---- 5. headline
+    phases.start("5 headline")
     res, spp, depth = HEADLINE["res"], HEADLINE["spp"], HEADLINE["depth"]
     head = compile_scene_file(REPO / "scenes" / "cornell_tex.pbrt",
                               overrides={"resolution": (res, res), "spp": spp, "max_depth": depth})
@@ -525,6 +576,7 @@ def main() -> int:
         raise AssertionError("the headline did not run through both kernels alone")
 
     # ---- 6. the sphere-field and mesh configs
+    phases.start("6 configs")
     # capture: the inputs of one traversal of each warm-up pass (a bounce,
     # not the camera rays) for phase 7
     captured = {}
@@ -598,6 +650,7 @@ def main() -> int:
         del plan
 
     # ---- 7. the kernels at the paths' own shapes, and their bounds
+    phases.start("7 bounds")
     K.reset_launches()  # the stats kernel's path: this phase
     f_cl = check_sphere_kernels("spherefield10k bounce 1 (closest)", ftab,
                                 captured[("spherefield10k_256", "sphere_closest")], S, plain)
@@ -649,17 +702,106 @@ def main() -> int:
             f"{tm['closest_plain_ms']:.4f}), any {tm['any_ms']:.4f} ms (plain "
             f"{tm['any_plain_ms']:.4f})")
 
+    # ---- 8. the traversal-analysis path: K4, the A/B, the roofline, the
+    # granularity probe, P
+    phases.start("8 probes")
+    from curry_pbrt_tpu_torch.ops.kernels import intersect_group as G
+    from curry_pbrt_tpu_torch.tools import probe_granularity as PG
+    from curry_pbrt_tpu_torch.tools import probe_group_kernel as PK
+    from curry_pbrt_tpu_torch.tools import probe_slab_grid as PS
+    from curry_pbrt_tpu_torch.tools import roofline as RL
+    from curry_pbrt_tpu_torch.tools.workload import Workload
+
+    gsoup_host = G.group_tables(*soup_tris(5000, seed=1), view_origin=np.zeros(3),
+                                clusters_per_slab=16)
+    gsoup = K.DeviceTables(gsoup_host, dev)
+    log(f"[probes] K4 soup tables: {gsoup_host.cluster_aabbs.shape[0]} clusters of "
+        f"{gsoup_host.block_t}, {gsoup_host.n_slabs} slabs, supers {gsoup_host.use_supers}, "
+        f"{int(np.isnan(gsoup_host.cluster_aabbs[:, 0]).sum())} NaN padding clusters")
+    as_t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    check_group("soup5k/32768", gsoup, stab, as_t(gsoup_host.prim), as_t(stab_host.prim),
+                make_rays(1 << 15, 60, (0, 0, 0), 9.0, dev), G)
+
+    K.reset_launches()  # the probe path's counts start here
+    ab = {}
+    for name in ("mesh10k_512", "mesh100k_512"):
+        wl = Workload(config_scene(name), dev, tables=mtab if name == "mesh100k_512" else None)
+        ab[name] = PK.analyze(name, chunk, PROBE_DEPTH, "cuda", wl=wl, keep=(2,))
+    ab_launches = dict(K.LAUNCHES)
+    for s_ab in ab.values():
+        log(f"[probes] K1 / K4 A/B on {card}:\n" + PK.report(s_ab))
+        PK.check(s_ab)
+    log(f"[probes] A/B launches: {ab_launches}")
+    if min(ab_launches["tri_closest_group"], ab_launches["tri_any_group"]) <= 0:
+        raise AssertionError("the probe path did not launch K4")
+
+    # K4 at mesh10k's bounce 2 against its plain version; its bound from
+    # K1's per-ray entered tiles on the same rays (the function's least work)
+    s10 = ab["mesh10k_512"]
+    pair = s10["pair"]
+    o2, d2, tm2, tm2_s = s10["inputs"][2]
+    k4_10 = check_group("mesh10k bounce 2", pair.k4, pair.k1, pair.prim4, pair.prim1,
+                        (o2, d2, tm2), G, t_any=tm2_s, plain_reps=1)
+    k1t = pair.k1
+    _, _, ent1, _ = K.tri_closest_hit_tables(o2, d2, tm2, k1t.tris16, k1t.caabb, k1t.saabb,
+                                             k1t.slab_aabb, **k1t.kw, stats=True)
+    _, any_ent1 = plain["any"](o2, d2, tm2_s, k1t.tris16, k1t.caabb, k1t.saabb, k1t.slab_aabb,
+                               **k1t.kw, stats=True)
+    ent1, any_ent1 = int(ent1.sum()), int(any_ent1.sum())
+    k1_block = k1t.kw["block_t"]
+    k4c_b = bound(k4_10["n"], 8, k4_10["table_bytes"], ent1, k1_block, TRI_TEST_OPS)
+    k4a_b = bound(k4_10["n"], 1, k4_10["table_bytes"], any_ent1, k1_block, TRI_TEST_OPS)
+    r2 = s10["bounces"][2]
+    log(f"[bounds] K4 at mesh10k's bounce-2 shape ({k4_10['n']} rays) on {card}: closest "
+        f"{r2['k4_ms']:.4f} ms (K1 {r2['k1_ms']:.4f}; plain {k4_10['plain_ms']:.3f}), bound "
+        f"{k4c_b[0]:.4f} ms ({k4c_b[1]}; K1's {ent1} entered tiles of {k1_block}; K4's group-"
+        f"granular count {k4_10['group_entered']} ray-tiles of {pair.kw4['block_t']} = "
+        f"{k4_10['group_entered'] // 8} group tiles); any {r2['k4_any_ms']:.4f} ms (K2 "
+        f"{r2['k2_ms']:.4f}; plain {k4_10['any_plain_ms']:.3f}), bound {k4a_b[0]:.4f} ms "
+        f"({k4a_b[1]}; K2's {any_ent1} entered tiles; K4's group-granular count "
+        f"{k4_10['group_any_entered']})")
+
+    peak = RL.card_peak(dev)
+    log(f"[roofline] {card}: peak {peak['derivation']}")
+    for name, sc in (("cornell_tex", scene), ("mesh10k_512", config_scene("mesh10k_512"))):
+        log(RL.report(RL.analyze(name, chunk, PROBE_DEPTH, "cuda", peak=peak,
+                                 wl=Workload(sc, dev))))
+    gran = PG.analyze("mesh10k_512", chunk, PROBE_DEPTH, "cuda",
+                      wl=Workload(config_scene("mesh10k_512"), dev))
+    log(f"[granularity] {card}:\n" + PG.report(gran))
+
+    K.reset_launches()  # P's path: the probe at both shapes
+    p_small = PS.run(2, 3, "cuda")
+    p_big = PS.run(16384, 7, "cuda")
+    p_launches = K.LAUNCHES["slab_grid"]
+    if p_launches != 2:
+        raise AssertionError(f"the P probe launched its kernel {p_launches} times, not 2")
+    p_in = PS.make_inputs(16384, 7, device=dev)
+    p_ms = cuda_ms(lambda: PS.slab_grid(*p_in), 20)
+    p_plain_ms = cuda_ms(lambda: PS.slab_grid_plain(*p_in), 5)
+    p_n, p_s = p_in[1].shape[1], 7
+    # row 0 of the rays in, the output out, the slabs and one table entry
+    # per slab; 65 operations per slab sum, 2 per (ray, slab)
+    p_b = least_ms(p_n * 8 + p_s * (8 * 8 + 1) * 4, p_s * 65 + p_n * p_s * 2)
+    log(f"[P] {card}: 2 blocks x 3 slabs max |d| {p_small[1]:.3g} (rel {p_small[2]:.3g}), "
+        f"16384 blocks x 7 slabs max |d| {p_big[1]:.3g} (rel {p_big[2]:.3g}) vs plain (rtol "
+        f"{PS.RTOL}); {p_ms:.4f} ms (plain {p_plain_ms:.4f}), bound {p_b[0]:.4f} ms ({p_b[1]}); "
+        f"launches {p_launches}")
+
+    phases.start()
     # ---- report
     src = "curry_pbrt_tpu_torch/csrc/intersect.cu"
     field_l = config_runs["spherefield10k_256"]["launches"]
 
-    def entry(name, replaces, launches, err, ms, plain_ms, b):
-        return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+    def entry(name, replaces, launches, err, ms, plain_ms, b, source=src):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
 
     tri_k = "curry_pbrt_tpu/ops/pallas/intersect_kernel.py"
     sph_k = "curry_pbrt_tpu/ops/pallas/sphere_kernel.py"
+    grp_k = "curry_pbrt_tpu/ops/pallas/intersect_group.py"
+    grp_src = "curry_pbrt_tpu_torch/csrc/intersect_group.cu"
     kernels = [
         entry("tri_closest_hit", f"{tri_k}:709", head_launches["tri_closest"],
               head_shape["max_abs_err"], head_shape["closest_ms"],
@@ -673,6 +815,12 @@ def main() -> int:
               f_any["any_ms"], f_any["any_plain_ms"], k3a_b),
         entry("tri_closest_hit_stats", f"{tri_k}:712", stats_launches, 0.0, st100["stats_ms"],
               st100["stats_plain_ms"], k1s_b),
+        entry("tri_closest_hit_groups", f"{grp_k}:345", ab_launches["tri_closest_group"],
+              k4_10["max_abs_err"], r2["k4_ms"], k4_10["plain_ms"], k4c_b, grp_src),
+        entry("tri_any_hit_groups", f"{grp_k}:382", ab_launches["tri_any_group"],
+              k4_10["any_max_abs_err"], r2["k4_any_ms"], k4_10["any_plain_ms"], k4a_b, grp_src),
+        entry("slab_grid_probe", "tools/probe_slab_grid.py:34", p_launches, p_big[1], p_ms,
+              p_plain_ms, p_b, "curry_pbrt_tpu_torch/csrc/slab_grid.cu"),
     ]
     log(f"[total] chip_smoke ran {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -25,6 +25,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0, help="sampler scramble seed")
     ap.add_argument("--no-clip", action="store_true", help="disable camera frustum culling")
     ap.add_argument("--chunk-pixels", type=int, help="pixels per device batch")
+    ap.add_argument("--intersector", default="kernel", choices=["kernel", "brute"],
+                    help="traversal kernels over cluster tables (default) or brute force "
+                         "(every ray against every primitive: small scenes, the oracle)")
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
 
@@ -46,6 +49,7 @@ def main(argv=None):
         overrides=overrides,
         device=args.device,
         chunk_pixels=args.chunk_pixels,
+        intersector=args.intersector,
         show_progress=not args.quiet,
     )
 

@@ -50,17 +50,6 @@
 
 namespace curry {
 
-struct Tables {
-    const float* prims;  // (n_clusters * block, PRIM_COLS): tris16 or sph16
-    const float* caabb;  // (n_clusters, 8)
-    const float* saabb;  // (n_clusters / SUPER_G, 8) when use_supers
-    const float* slab;   // (n_slabs, 8)
-    int block;
-    int clusters_per_slab;
-    int n_slabs;
-    int use_supers;
-};
-
 // The slab → super → cluster walk of every kernel: calls visit(c) for each
 // cluster, in table order, whose slab and super boxes the ray enters, with
 // bound() — the ray's bound at that moment — in each box test. A visit that
@@ -174,13 +163,6 @@ __global__ void any_kernel(const float* __restrict__ o, const float* __restrict_
 
 constexpr int THREADS = 256;
 
-Tables make_tables(const void* prims, const void* caabb, const void* saabb, const void* slab,
-                   int block, int clusters_per_slab, int n_slabs, int use_supers) {
-    return Tables{static_cast<const float*>(prims), static_cast<const float*>(caabb),
-                  static_cast<const float*>(saabb), static_cast<const float*>(slab),
-                  block, clusters_per_slab, n_slabs, use_supers};
-}
-
 // Launches the closest-hit kernel over primitive type Prim. Returns
 // cudaGetLastError().
 template <class Prim, bool STATS>
@@ -208,18 +190,7 @@ int launch_any(const void* o, const void* d, const void* t_max, const Tables& tb
 
 }  // namespace curry
 
-// Plain C interface for ctypes. Pointers are device pointers; the launch goes
-// on `stream` and does not synchronise. Each returns cudaGetLastError().
-// `prims` is tris16 for the tri_* entry points and sph16 for the sphere_*
-// ones; `block` is block_t or block_s.
-#define CURRY_TABLE_ARGS                                                                  \
-    const void *o, const void *d, const void *t_max, const void *prims, const void *caabb, \
-        const void *saabb, const void *slab, int n, int block, int clusters_per_slab,    \
-        int n_slabs, int use_supers, float g2, float g3, float g5, float t_scale
-#define CURRY_TABLES                                                                       \
-    curry::make_tables(prims, caabb, saabb, slab, block, clusters_per_slab, n_slabs,     \
-                       use_supers),                                                        \
-        curry::Consts { g2, g3, g5, t_scale }
+// The C interface (CURRY_TABLE_ARGS, intersect.cuh).
 
 // Closest hit over triangles; the stats instantiation (K1b) when entered_out
 // and improved_out are not null.

@@ -201,4 +201,37 @@ struct SpherePrim {
     }
 };
 
+// The cluster tables every traversal kernel walks.
+struct Tables {
+    const float* prims;  // (n_clusters * block, PRIM_COLS): tris16 or sph16
+    const float* caabb;  // (n_clusters, 8)
+    const float* saabb;  // (n_clusters / SUPER_G, 8) when use_supers
+    const float* slab;   // (n_slabs, 8)
+    int block;
+    int clusters_per_slab;
+    int n_slabs;
+    int use_supers;
+};
+
+inline Tables make_tables(const void* prims, const void* caabb, const void* saabb,
+                          const void* slab, int block, int clusters_per_slab, int n_slabs,
+                          int use_supers) {
+    return Tables{static_cast<const float*>(prims), static_cast<const float*>(caabb),
+                  static_cast<const float*>(saabb), static_cast<const float*>(slab),
+                  block, clusters_per_slab, n_slabs, use_supers};
+}
+
 }  // namespace curry
+
+// Plain C interface for ctypes. Pointers are device pointers; the launch goes
+// on `stream` and does not synchronise. Each entry point returns
+// cudaGetLastError(). `prims` is tris16 for the tri_* entry points and sph16
+// for the sphere_* ones; `block` is block_t or block_s.
+#define CURRY_TABLE_ARGS                                                                  \
+    const void *o, const void *d, const void *t_max, const void *prims, const void *caabb, \
+        const void *saabb, const void *slab, int n, int block, int clusters_per_slab,    \
+        int n_slabs, int use_supers, float g2, float g3, float g5, float t_scale
+#define CURRY_TABLES                                                                       \
+    curry::make_tables(prims, caabb, saabb, slab, block, clusters_per_slab, n_slabs,     \
+                       use_supers),                                                        \
+        curry::Consts { g2, g3, g5, t_scale }

@@ -4,8 +4,9 @@ ops/intersect.py).
 SoA geometry tables, the watertight ray–triangle test, the stable sphere
 quadratic, winner-only hit attributes and error-offset ray spawning. The
 traversal itself runs in the CUDA kernels of ops/kernels/; this module holds
-the per-pair math they share with their plain versions, and the attribute
-pass that follows them.
+the per-pair math they share with their plain versions, the attribute
+pass that follows them, and the brute-force aggregate (every ray against
+every primitive), the oracle the kernels are held against.
 
 Triangle test: watertight Möller (translate–permute–shear, edge functions,
 conservative error rejection) as the reference's
@@ -173,6 +174,20 @@ def ray_shear(d):
     return kz, -dx / dz, -dy / dz, 1.0 / dz
 
 
+def triangle_intersect_t(o, d, t_max, tris: TriangleArrays, with_bary: bool = True):
+    """Dense (N rays × T tris) watertight test. o/d: (N,3); t_max: (N,).
+    Returns t: (N,T), FLOAT_MAX where not ok; b: (N,T,3), None with
+    with_bary=False; ok: (N,T) bool (padding rows, prim < 0, never hit)."""
+    kz, sx, sy, sz = ray_shear(d)
+    t, b, ok = watertight_core(
+        o[:, None, :], kz[:, None], sx[:, None], sy[:, None], sz[:, None],
+        t_max[:, None], tris.p0[None], tris.p1[None], tris.p2[None],
+        with_bary=with_bary,
+    )
+    ok = ok & (tris.prim[None, :] >= 0)
+    return torch.where(ok, t, _FMAX), b, ok
+
+
 def triangle_winner_attributes(o, d, t_max, tri_idx, tris: TriangleArrays):
     """Re-run the watertight test for each ray's WINNING triangle — O(N) —
     and derive (p, n, uv, p_error) from the one vertex gather.
@@ -304,3 +319,89 @@ def offset_point_by_error(p, n, p_error, w):
 def spawn_ray(p, n, p_error, d):
     """Continuation ray from a surface point (Ray::new_shape_point_d)."""
     return offset_point_by_error(p, n, p_error, d), d
+
+
+# ---------------------------------------------------------------------------
+# brute-force aggregate: every ray against every primitive — the oracle the
+# traversal kernels are held against, and the `intersector="brute"` backend
+
+
+def _closest_of(t, ok):
+    """(N,P) t / ok → (best index (N,) int64 — the lowest index on an exact
+    tie, as argmin —, its t, whether it is a hit)."""
+    best = torch.argmin(t, dim=-1)
+    return best, torch.gather(t, 1, best[:, None])[:, 0], torch.gather(ok, 1, best[:, None])[:, 0]
+
+
+def intersect_brute(o, d, t_max, tris: TriangleArrays, sph: SphereArrays) -> Hit:
+    """Closest hit over all primitives (dense). o/d: (N,3), t_max: (N,).
+    tris / sph hold tensors on the rays' device."""
+    n_rays = o.shape[0]
+    dev = o.device
+    t_out = torch.full((n_rays,), _FMAX, dtype=torch.float32, device=dev)
+    hit_prim = torch.full((n_rays,), -1, dtype=torch.int32, device=dev)
+    p = torch.zeros((n_rays, 3), dtype=torch.float32, device=dev)
+    n, p_error = p, p
+    uv = torch.zeros((n_rays, 2), dtype=torch.float32, device=dev)
+    have_tris, have_sph = tris.count > 0, sph.count > 0
+    if have_tris:
+        tt, _, tok = triangle_intersect_t(o, d, t_max, tris, with_bary=False)
+        tri_best, tri_t, tri_hit = _closest_of(tt, tok)
+    if have_sph:
+        st, sok = sphere_intersect_t(o, d, t_max, sph)
+        sph_best, sph_t, sph_hit = _closest_of(st, sok)
+
+    if have_tris and have_sph:
+        use_tri = tri_hit & (~sph_hit | (tri_t <= sph_t))
+        use_sph = sph_hit & ~use_tri
+    elif have_tris:
+        use_tri = tri_hit
+    elif have_sph:
+        use_sph = sph_hit
+    else:
+        return Hit(t_out, hit_prim, p, n, uv, p_error)
+
+    if have_tris:
+        tp, tn, tuv, terr = triangle_winner_attributes(o, d, t_max, tri_best, tris)
+        m = use_tri[:, None]
+        p, n = torch.where(m, tp, p), torch.where(m, tn, n)
+        uv, p_error = torch.where(m, tuv, uv), torch.where(m, terr, p_error)
+        t_out = torch.where(use_tri, tri_t, t_out)
+        hit_prim = torch.where(use_tri, tris.prim[tri_best], hit_prim)
+    if have_sph:
+        sp, sn, suv, serr = sphere_hit_attributes(sph_best, sph_t, o, d, sph)
+        m = use_sph[:, None]
+        p, n = torch.where(m, sp, p), torch.where(m, sn, n)
+        uv, p_error = torch.where(m, suv, uv), torch.where(m, serr, p_error)
+        t_out = torch.where(use_sph, sph_t, t_out)
+        hit_prim = torch.where(use_sph, sph.prim[sph_best], hit_prim)
+    return Hit(t_out, hit_prim, p, n, uv, p_error)
+
+
+def intersect_tprim_brute(o, d, t_max, tris: TriangleArrays, sph: SphereArrays):
+    """Slim closest hit: (t, prim) only, no attributes (the NEE MIS leg)."""
+    n_rays = o.shape[0]
+    t_out = torch.full((n_rays,), _FMAX, dtype=torch.float32, device=o.device)
+    prim = torch.full((n_rays,), -1, dtype=torch.int32, device=o.device)
+    if tris.count > 0:
+        tt, _, tok = triangle_intersect_t(o, d, t_max, tris, with_bary=False)
+        tri_best, tri_t, tri_hit = _closest_of(tt, tok)
+        t_out = torch.where(tri_hit, tri_t, t_out)
+        prim = torch.where(tri_hit, tris.prim[tri_best], prim)
+    if sph.count > 0:
+        st, sok = sphere_intersect_t(o, d, t_max, sph)
+        sph_best, sph_t, sph_hit = _closest_of(st, sok)
+        use = sph_hit & (sph_t < t_out)
+        t_out = torch.where(use, sph_t, t_out)
+        prim = torch.where(use, sph.prim[sph_best], prim)
+    return t_out, prim
+
+
+def intersect_predicate_brute(o, d, t_max, tris: TriangleArrays, sph: SphereArrays):
+    """Any-hit test (shadow rays) → (N,) bool."""
+    hit = torch.zeros(o.shape[:1], dtype=torch.bool, device=o.device)
+    if tris.count > 0:
+        hit = hit | torch.any(triangle_intersect_t(o, d, t_max, tris, with_bary=False)[2], dim=-1)
+    if sph.count > 0:
+        hit = hit | torch.any(sphere_intersect_t(o, d, t_max, sph)[1], dim=-1)
+    return hit

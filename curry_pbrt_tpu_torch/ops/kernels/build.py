@@ -97,11 +97,16 @@ def load_library() -> ctypes.CDLL:
     outputs = {  # + the output pointers and the stream
         "curry_tri_closest_hit": 5,  # t_out, row_out, entered_out, improved_out
         "curry_sphere_closest_hit": 3,  # t_out, row_out
+        "curry_tri_closest_hit_groups": 3,  # t_out, row_out (intersect_group.cu)
         "curry_tri_any_hit": 2,  # hit_out
         "curry_sphere_any_hit": 2,
+        "curry_tri_any_hit_groups": 2,
     }
     for name, n_ptrs in outputs.items():
         fn = getattr(lib, name)
         fn.argtypes = table_args + [_P] * n_ptrs
         fn.restype = _I
+    # tab, rays, slabs; n_slabs, slab_rows, block_rays, n; out, stream (slab_grid.cu)
+    lib.curry_slab_grid.argtypes = [_P] * 3 + [_I] * 4 + [_P] * 2
+    lib.curry_slab_grid.restype = _I
     return lib

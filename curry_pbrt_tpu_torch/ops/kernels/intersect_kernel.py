@@ -17,7 +17,9 @@ table functions are copied as they are, so both packages build identical tables:
 tables. For tensors on the CPU they run the plain versions; for CUDA tensors
 they launch the CUDA kernels (and raise if those cannot run) — there is no
 fallback from the card to the plain code. `LAUNCHES` counts kernel launches
-per kernel, those of the sphere kernels (sphere_kernel.py) included.
+per kernel, those of the sphere kernels (sphere_kernel.py), the group
+kernels (intersect_group.py) and the slab-grid probe
+(tools/probe_slab_grid.py) included.
 
 `stats=True` (K1b, the JAX kernel's roofline instrumentation) also returns
 per-ray (entered, improved) int32 counts: the cluster tiles each ray
@@ -52,7 +54,8 @@ USE_SUPERS_MIN = 96  # enable the super-cluster level beyond this many clusters
 # Kernel launches per wrapper since the last reset (plain-version calls on
 # CPU tensors are not launches and are not counted).
 LAUNCHES = {"tri_closest": 0, "tri_closest_stats": 0, "tri_any": 0,
-            "sphere_closest": 0, "sphere_any": 0}
+            "sphere_closest": 0, "sphere_any": 0,
+            "tri_closest_group": 0, "tri_any_group": 0, "slab_grid": 0}
 
 
 def reset_launches() -> None:
@@ -305,21 +308,28 @@ def _tile_test(rows, o, kz, sx, sy, sz, t_best):
     return torch.where(ok, t, float(FLOAT_MAX))
 
 
-def _walk(saabb, slab_aabb, cps, use_supers, o, d, t_bound, visit):
-    """Front-to-back walk shared by both plain versions: for every cluster,
+def _per_ray(mask):
+    return mask
+
+
+def _walk(saabb, slab_aabb, cps, use_supers, o, d, t_bound, visit, spread=_per_ray):
+    """Front-to-back walk shared by every plain version: for every cluster,
     in table order, call visit(c, gate, inv_d) with the (N,) mask of rays
     whose slab and super tests passed. The box tests use t_bound(), each
-    ray's current bound at the time of the test."""
+    ray's current bound at the time of the test; spread(mask) turns each
+    level's per-ray result into the rays that test on (per ray for K1-K3;
+    the whole group of 8 for the group kernel K4)."""
     inv_d = 1.0 / torch.where(d == 0, float(Float(1e-30)), d)
     n_slabs = slab_aabb.shape[0]
     all_rays = torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
     for j in range(n_slabs):
         slab_gate = all_rays
         if n_slabs > 1:
-            slab_gate = _box_enter(slab_aabb[j], o, inv_d, t_bound())
+            slab_gate = spread(_box_enter(slab_aabb[j], o, inv_d, t_bound()))
         if use_supers:
             for s in range(cps // SUPER_G):
-                gate = slab_gate & _box_enter(saabb[j * (cps // SUPER_G) + s], o, inv_d, t_bound())
+                gate = slab_gate & spread(
+                    _box_enter(saabb[j * (cps // SUPER_G) + s], o, inv_d, t_bound()))
                 for c_off in range(SUPER_G):
                     visit(j * cps + s * SUPER_G + c_off, gate, inv_d)
         else:
@@ -328,7 +338,7 @@ def _walk(saabb, slab_aabb, cps, use_supers, o, d, t_bound, visit):
 
 
 def _closest_plain(tile, o, d, t_max, prims, caabb, saabb, slab_aabb, block, cps, use_supers,
-                   stats):
+                   stats, spread=_per_ray):
     """The closest-hit walk of every plain version: per cluster, the rays
     that enter its box test all `block` rows against their best t frozen at
     the cluster's start — tile(rows, ids, t_best) → (len(ids), block) t,
@@ -336,7 +346,8 @@ def _closest_plain(tile, o, d, t_max, prims, caabb, saabb, slab_aabb, block, cps
     tie) is accepted on strict improvement, or at exactly t_max for a ray's
     first hit. Returns (t, row) and, with stats, per-ray (entered, improved)
     int32 counts of the tiles each ray entered and of those that improved
-    its best t."""
+    its best t. spread: see _walk (with the group spread, a ray counts
+    every tile its group tested)."""
     t_best = t_max.clone()
     idx = torch.full(t_max.shape, -1, dtype=torch.int32, device=o.device)
     entered = torch.zeros(t_max.shape, dtype=torch.int32, device=o.device)
@@ -344,7 +355,7 @@ def _closest_plain(tile, o, d, t_max, prims, caabb, saabb, slab_aabb, block, cps
     fmax = float(FLOAT_MAX)
 
     def visit(c, gate, inv_d):
-        enter = gate & _box_enter(caabb[c], o, inv_d, t_best)
+        enter = gate & spread(_box_enter(caabb[c], o, inv_d, t_best))
         ids = torch.nonzero(enter).squeeze(1)
         if ids.numel() == 0:
             return
@@ -359,31 +370,32 @@ def _closest_plain(tile, o, d, t_max, prims, caabb, saabb, slab_aabb, block, cps
             entered[ids] += 1
             improved[ids] += better.to(torch.int32)
 
-    _walk(saabb, slab_aabb, cps, use_supers, o, d, lambda: t_best, visit)
+    _walk(saabb, slab_aabb, cps, use_supers, o, d, lambda: t_best, visit, spread)
     out = (torch.where(idx >= 0, t_best, fmax), idx)
     return out + (entered, improved) if stats else out
 
 
-def _any_plain(tile, o, d, t_max, prims, caabb, saabb, slab_aabb, block, cps, use_supers, stats):
+def _any_plain(tile, o, d, t_max, prims, caabb, saabb, slab_aabb, block, cps, use_supers, stats,
+               spread=_per_ray):
     """The any-hit walk of every plain version: a ray stops at its first
     cluster with any row hit within t_max. Returns (N,) bool and, with
-    stats, the per-ray int32 count of tiles entered."""
+    stats, the per-ray int32 count of tiles entered (spread: see _walk)."""
     hit = torch.zeros(t_max.shape, dtype=torch.bool, device=o.device)
     entered = torch.zeros(t_max.shape, dtype=torch.int32, device=o.device)
     # rays already hit carry bound 0, which fails every later box test
     bound = lambda: torch.where(hit, 0.0, t_max)  # noqa: E731
 
     def visit(c, gate, inv_d):
-        enter = gate & ~hit & _box_enter(caabb[c], o, inv_d, t_max)
+        enter = gate & spread(~hit & _box_enter(caabb[c], o, inv_d, t_max))
         ids = torch.nonzero(enter).squeeze(1)
         if ids.numel() == 0:
             return
         t = tile(prims[c * block:(c + 1) * block], ids, t_max[ids])
-        hit[ids] = torch.any(t < float(FLOAT_MAX), dim=1)
+        hit[ids] = hit[ids] | torch.any(t < float(FLOAT_MAX), dim=1)
         if stats:
             entered[ids] += 1
 
-    _walk(saabb, slab_aabb, cps, use_supers, o, d, bound, visit)
+    _walk(saabb, slab_aabb, cps, use_supers, o, d, bound, visit, spread)
     return (hit, entered) if stats else hit
 
 

@@ -22,6 +22,7 @@ from curry_pbrt_tpu_torch.models import integrators as I
 from curry_pbrt_tpu_torch.models.camera import generate_rays
 from curry_pbrt_tpu_torch.models.materials import build_families
 from curry_pbrt_tpu_torch.ops import film as F
+from curry_pbrt_tpu_torch.ops import intersect as isect
 from curry_pbrt_tpu_torch.ops.halton import (
     HaltonConfig,
     compute_pixel_offsets,
@@ -55,12 +56,45 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def make_shade_context(scene: Scene, device, ray_sort: Optional[bool] = None) -> I.ShadeContext:
-    """Build the static shading context over the kernel intersectors."""
-    cam_pos = np.asarray(scene.camera.camera_to_world)[:3, 3]
-    inter, pred, tprim = make_kernel_intersectors(
-        scene.tris, scene.spheres, device, view_origin=cam_pos, ray_sort=ray_sort
-    )
+INTERSECTORS = ("kernel", "brute")
+
+
+def make_intersectors(scene: Scene, device, intersector: str = "kernel",
+                      ray_sort: Optional[bool] = None):
+    """The (intersect, predicate, intersect_tprim) seam: "kernel" — the
+    traversal kernels over cluster tables (their plain versions on the
+    CPU); "brute" — every ray against every primitive
+    (ops/intersect.py's brute trio, dense (rays × primitives) tensors: for
+    small scenes and as the oracle)."""
+    if intersector == "kernel":
+        cam_pos = np.asarray(scene.camera.camera_to_world)[:3, 3]
+        return make_kernel_intersectors(scene.tris, scene.spheres, device, view_origin=cam_pos,
+                                        ray_sort=ray_sort)
+    if intersector == "bvh":
+        raise NotImplementedError(
+            "intersector 'bvh' is not ported to curry_pbrt_tpu_torch yet (ROADMAP.md Queue 1 "
+            "item 13); use 'kernel' or 'brute'")
+    if intersector != "brute":
+        raise ValueError(f"unknown intersector {intersector!r} (one of {INTERSECTORS})")
+
+    def on(arrays):
+        return type(arrays)(*(torch.as_tensor(np.ascontiguousarray(a), device=device)
+                              for a in arrays))
+
+    tris, sph = on(scene.tris), on(scene.spheres)
+
+    def detached(fn):
+        return lambda o, d, t_max: fn(o.detach(), d.detach(), t_max.detach(), tris, sph)
+
+    return (detached(isect.intersect_brute), detached(isect.intersect_predicate_brute),
+            detached(isect.intersect_tprim_brute))
+
+
+def make_shade_context(scene: Scene, device, ray_sort: Optional[bool] = None,
+                       intersector: str = "kernel") -> I.ShadeContext:
+    """Build the static shading context over the chosen intersector
+    (make_intersectors)."""
+    inter, pred, tprim = make_intersectors(scene, device, intersector, ray_sort)
     # only materials actually referenced by primitives participate in shading
     used_ids = set(np.asarray(scene.prim_mat).tolist()) - {-1}
     used = [mat for mat in scene.materials if mat.mat_id in used_ids]
@@ -95,9 +129,11 @@ class RenderPlan:
 
 
 def plan_render(scene: Scene, device="cuda", chunk_pixels: Optional[int] = None,
-                ray_sort: Optional[bool] = None) -> RenderPlan:
+                ray_sort: Optional[bool] = None, intersector: str = "kernel") -> RenderPlan:
     """ray_sort: the aggregate's per-traversal ray sort (None: on beyond 512
-    triangle clusters, as in the JAX package; True / False force it)."""
+    triangle clusters, as in the JAX package; True / False force it).
+    intersector: "kernel" (the default on every device) or "brute"
+    (make_intersectors)."""
     device = resolve_device(device)
     if scene.settings.integrator != "path":
         raise NotImplementedError(
@@ -119,7 +155,7 @@ def plan_render(scene: Scene, device="cuda", chunk_pixels: Optional[int] = None,
         chunk_pixels = max(min(CHUNK_RAYS[device.type] // max(spp, 1), n_pixels), 1)
     return RenderPlan(
         scene=scene,
-        ctx=make_shade_context(scene, device, ray_sort),
+        ctx=make_shade_context(scene, device, ray_sort, intersector),
         cfg=cfg,
         perms=perms,
         pixel_offsets=offs,
@@ -183,14 +219,15 @@ def render_scene(
     show_progress: bool = True,
     count_rays: bool = False,
     ray_sort: Optional[bool] = None,
+    intersector: str = "kernel",
 ):
     """Full render → (H, W, 3) float32 numpy radiance image; with
     count_rays=True → (image, traced segments as a Python int).
 
     params: the scene's params tree (scene.init_params when None), with
-    tensor or numpy leaves; it is moved to `device`. ray_sort: see
-    plan_render."""
-    plan = plan_render(scene, device, chunk_pixels, ray_sort)
+    tensor or numpy leaves; it is moved to `device`. ray_sort, intersector:
+    see plan_render."""
+    plan = plan_render(scene, device, chunk_pixels, ray_sort, intersector)
     return render_plan(plan, params, show_progress=show_progress, count_rays=count_rays)
 
 
