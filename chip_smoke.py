@@ -7,33 +7,43 @@ Phases, each printed as it runs; any failure raises, so the exit code is
 non-zero and no result line is printed:
   1. device  — requires CUDA; prints the card's name and power limit
                (nvidia-smi) and the torch / nvcc versions;
-  2. build   — compiles csrc/*.cu with nvcc (sm_90a, -fmad=false) and prints
-               the build time and ptxas' register report;
-  3. kernels — the closest-hit (K1) and any-hit (K2) kernels against their
-               plain PyTorch versions on the card: cornell_tex tables
-               (block_t 8, one slab) and a 5k-triangle soup (block_t 64,
-               supers, 5 slabs, a NaN padding cluster), 32k and 1M rays with
-               dead lanes, plus the render path's chunk shape. Hit masks and
-               rows must be equal (rows up to exact-t ties) and t bit-equal —
-               the build's -fmad=false is what makes that hold;
+  2. build   — compiles csrc/*.cu with nvcc (sm_90a, -fmad=false; one nvcc
+               per source, all started together) and prints the build time
+               and ptxas' register report;
+  3. kernels — the closest-hit (K1) and any-hit (K2) kernels, through both
+               walks — the warp walk (csrc/intersect_warp.cu) and the
+               per-thread walk (csrc/intersect.cu) — against their plain
+               PyTorch versions and each other on the card: cornell_tex
+               tables (block_t 8, one slab) and a 5k-triangle soup (block_t
+               64, supers, 5 slabs, a NaN padding cluster), 32k and 1M rays
+               with dead lanes, the render path's chunk shape, a batch whose
+               t_max is each ray's exact hit t (the first-hit-at-t_max rule)
+               and one with ~90% dead lanes at the chunk shape. Hit masks
+               must be equal, rows up to exact-t ties, t bit-equal — the
+               build's -fmad=false is what makes that hold; both walks' ms
+               in turns (the launch plan keeps the per-thread walk at
+               block_t 8, and the line says whether it still measures
+               faster there);
   3b. spheres— the sphere kernels (K3, closest and any hit) against their
                plain versions: the spherefield10k tables and a soup of
                rotated, anisotropically scaled spheres (supers, several
                slabs, a NaN padding cluster), 32k and 1M rays with dead
                lanes plus the sphere field's chunk shape; masks and any-hit
                equal, t bit-equal, spheres equal up to exact-t ties;
-  3c. stats  — K1 with stats=True against the plain version's stats on the
-               triangle soup and the mesh100k tables: per-ray (entered,
-               improved) counts equal, (t, row) unchanged by stats;
+  3c. stats  — K1 with stats=True, both walks, against the plain version's
+               stats on the triangle soup and the mesh100k tables: per-ray
+               (entered, improved) counts equal, (t, row) unchanged by stats;
   4. slice   — cornell_tex at 32², 4 spp, depth 3 through render_scene on
                the card, against tests/goldens/cornell_tex.npy under the CPU
                slice test's tolerance, and against the port's own CPU
-               render (plain versions); both kernels must have launched and
-               the plain versions must not have run on the card;
+               render (plain versions); the K1 / K2 walk of the path's
+               launch plan must have launched, the other walk and the plain
+               versions not;
   5. headline— cornell_tex at 512², 64 spp, depth 5: a warm-up pass, then a
                timed pass whose launch counts are reported; traced segments
                and the image sum against the JAX anchors (155,670,944 within
-               1e-4 relative; 86446.0 within 1e-3 relative);
+               1e-4 relative; 86446.0 within 1e-3 relative), and the plan's
+               walk alone, as in phase 4;
   6. configs — spherefield10k_256, mesh10k_512, mesh100k_512 and
                mesh600k_256 at their full bench configs: each planned once
                (its seconds printed on their own line: set-up, not render
@@ -41,21 +51,25 @@ non-zero and no result line is printed:
                seg/s and launches; segments within 1e-4 and the image sum
                within 1e-3 relative of the JAX anchors; K3 must launch on
                the sphere field, the ray sort must run on mesh100k and
-               mesh600k, and no plain version may run on the card;
+               mesh600k, the plan's K1 / K2 walk alone (the warp walk on the
+               meshes), and no plain version may run on the card;
   7. bounds  — the kernels at the paths' own shapes, on rays captured from
                the warm-up passes of phase 6 (a sphere-field bounce, and a
-               mesh10k and a mesh100k bounce): kernel and plain ms, and the
-               least time the card could take (bytes or operations, from
-               the entered-tile counts of K1's stats and of the plain
-               versions);
+               mesh10k and a mesh100k bounce 2 with its shadow rays; each
+               shape's live lanes printed): both walks' and the plain ms, and
+               the least time the card could take (bytes or operations, from
+               the live lanes and the entered-tile counts of K1's stats and
+               of the plain versions);
   8. probes  — the traversal-analysis path (curry_pbrt_tpu_torch/tools/):
                the group kernel K4 (closest and any hit) against its plain
                version and against K1 / K2 on the phase-3 soup at 32k rays
                (t bit-equal, any-hit equal, rows and prims equal up to
                exact-t ties); the K1 / K4 A/B on mesh10k and mesh100k at the
                render chunk (4,194,304 rays), depth 6, the same checks per
-               bounce and each kernel's ms; K4 at mesh10k's bounce 2 against
-               its plain version, with its bound from K1's entered tiles;
+               bounce for K4 and for the per-thread walk, and each kernel's
+               ms (K1 / K2 and the per-thread walk in turns); K4 at
+               mesh10k's bounce 2 against its plain version, with its bound
+               from K1's entered tiles;
                the roofline on cornell_tex and mesh10k; the granularity
                probe on mesh10k; the slab-grid probe P at the JAX shape and
                at 16,384 blocks x 7 slabs against its plain version (rtol
@@ -91,6 +105,7 @@ from curry_pbrt_tpu_torch.tools.roofline import (  # noqa: E402
     least_ms,
     nvidia_smi,
     table_bytes,
+    turns,
 )
 
 # JAX anchors (hardware-independent: traced segments and image checksum of
@@ -201,51 +216,108 @@ def sphere_row_t(tables, o, d, t_max, rows):
     return torch.where(rows >= 0, t, float(FLOAT_MAX))
 
 
+def hold_closest(name, tables, rays, t_k, r_k, t_ref, r_ref, what):
+    """K1's (t, row) against a reference's: hit masks equal, t bit-equal,
+    rows equal up to exact-t ties, no hit on a dead lane. Returns the tie
+    rows."""
+    import torch
+
+    o, d, t_max = rays
+    hit_k, hit_r = r_k >= 0, r_ref >= 0
+    if not torch.equal(hit_k, hit_r):
+        raise AssertionError(f"{name}: {what} hit masks differ on "
+                             f"{(hit_k != hit_r).sum().item()} rays")
+    if not torch.equal(t_k, t_ref):
+        bad = (t_k != t_ref)
+        rel = ((t_k - t_ref).abs() / t_ref.abs().clamp(min=1e-30))[bad].max().item()
+        raise AssertionError(f"{name}: {what} t not bit-equal on {bad.sum().item()} rays "
+                             f"(max rel {rel:.3g})")
+    diff = r_k != r_ref
+    if diff.any():  # allowed only where both rows give the same t (a tie)
+        tk = row_t(tables.tris16, o[diff], d[diff], t_max[diff], r_k[diff])
+        tp = row_t(tables.tris16, o[diff], d[diff], t_max[diff], r_ref[diff])
+        if not (torch.equal(tk, tp) and torch.equal(tk, t_k[diff])):
+            raise AssertionError(f"{name}: {what} rows differ beyond exact-t ties")
+    if hit_k[t_max == 0].any():
+        raise AssertionError(f"{name}: a dead lane (t_max 0) reported a hit ({what})")
+    return int(diff.sum())
+
+
+def hold_any(name, h_k, h_ref, t_max, what):
+    import torch
+
+    if not torch.equal(h_k, h_ref):
+        raise AssertionError(f"{name}: {what} differ on {(h_k != h_ref).sum().item()} rays")
+    if h_k[t_max == 0].any():
+        raise AssertionError(f"{name}: a dead lane (t_max 0) reported an any hit ({what})")
+
+
 def check_kernels(name, tables, rays, K, plain, timing: bool):
-    """Kernel vs plain on one table set and ray batch; returns timings."""
+    """K1 / K2 through both walks — the warp walk (csrc/intersect_warp.cu)
+    and the per-thread walk (csrc/intersect.cu), whatever the plan picks for
+    these tables — against the plain versions and against each other on one
+    table set and ray batch; with timing, both walks' ms in turns and the
+    plain versions' ms."""
     import torch
 
     o, d, t_max = rays
     n = o.shape[0]
     kw = tables.kw
     args = (o, d, t_max, tables.tris16, tables.caabb, tables.saabb, tables.slab_aabb)
-    t_k, r_k = K.tri_closest_hit_tables(*args, **kw)
-    h_k = K.tri_any_hit_tables(*args, **kw)
+    t_w, r_w = K.tri_closest_hit_warp(*args, **kw)
+    h_w = K.tri_any_hit_warp(*args, **kw)
+    t_t, r_t = K.tri_closest_hit_thread(*args, **kw)
+    h_t = K.tri_any_hit_thread(*args, **kw)
     torch.cuda.synchronize()
     t_p, r_p = plain["closest"](*args, **kw)
     h_p = plain["any"](*args, **kw)
-    hit_k, hit_p = r_k >= 0, r_p >= 0
-    if not torch.equal(hit_k, hit_p):
-        raise AssertionError(f"{name}: K1 hit masks differ on {(hit_k != hit_p).sum().item()} rays")
-    if not torch.equal(h_k, h_p):
-        raise AssertionError(f"{name}: K2 results differ on {(h_k != h_p).sum().item()} rays")
-    if not torch.equal(t_k, t_p):
-        bad = (t_k != t_p)
-        rel = ((t_k - t_p).abs() / t_p.abs().clamp(min=1e-30))[bad].max().item()
-        raise AssertionError(f"{name}: K1 t not bit-equal on {bad.sum().item()} rays "
-                             f"(max rel {rel:.3g})")
-    diff = r_k != r_p
-    if diff.any():  # allowed only where both rows give the same t (a tie)
-        tk = row_t(tables.tris16, o[diff], d[diff], t_max[diff], r_k[diff])
-        tp = row_t(tables.tris16, o[diff], d[diff], t_max[diff], r_p[diff])
-        if not (torch.equal(tk, tp) and torch.equal(tk, t_k[diff])):
-            raise AssertionError(f"{name}: K1 rows differ beyond exact-t ties")
-    dead = t_max == 0
-    if hit_k[dead].any() or h_k[dead].any():
-        raise AssertionError(f"{name}: a dead lane (t_max 0) reported a hit")
-    max_abs = (t_k[hit_k] - t_p[hit_k]).abs().max().item() if hit_k.any() else 0.0
-    log(f"  {name}: {n} rays, {int(hit_k.sum())} closest hits, {int(h_k.sum())} any hits, "
-        f"{int(diff.sum())} tie rows — masks equal, t bit-equal, rows equal up to ties")
-    out = {"max_abs_err": max_abs,
-           "any_max_abs_err": (h_k.float() - h_p.float()).abs().max().item() if n else 0.0}
+    ties = hold_closest(name, tables, rays, t_w, r_w, t_p, r_p, "warp K1 vs plain")
+    hold_closest(name, tables, rays, t_t, r_t, t_p, r_p, "per-thread K1 vs plain")
+    hold_closest(name, tables, rays, t_w, r_w, t_t, r_t, "warp K1 vs per-thread K1")
+    hold_any(name, h_w, h_p, t_max, "warp K2 vs plain")
+    hold_any(name, h_w, h_t, t_max, "warp K2 vs per-thread K2")
+    hit = r_w >= 0
+    log(f"  {name}: {n} rays ({int((t_max > 0).sum())} live), {int(hit.sum())} closest hits, "
+        f"{int(h_w.sum())} any hits, {ties} tie rows — warp and per-thread walks: masks equal, "
+        f"t bit-equal to the plain version and to each other, rows equal up to ties, K2 equal")
+    err = lambda t: (t[hit] - t_p[hit]).abs().max().item() if hit.any() else 0.0  # noqa: E731
+    any_err = lambda h: (h.float() - h_p.float()).abs().max().item() if n else 0.0  # noqa: E731
+    out = {"max_abs_err": err(t_w), "thread_max_abs_err": err(t_t),
+           "any_max_abs_err": any_err(h_w), "any_thread_max_abs_err": any_err(h_t)}
     if timing:
-        out["closest_ms"] = cuda_ms(lambda: K.tri_closest_hit_tables(*args, **kw), 20)
-        out["any_ms"] = cuda_ms(lambda: K.tri_any_hit_tables(*args, **kw), 20)
+        out["closest_thread_ms"], out["closest_ms"] = turns(
+            lambda: K.tri_closest_hit_thread(*args, **kw),
+            lambda: K.tri_closest_hit_warp(*args, **kw), 20)
+        out["any_thread_ms"], out["any_ms"] = turns(
+            lambda: K.tri_any_hit_thread(*args, **kw),
+            lambda: K.tri_any_hit_warp(*args, **kw), 20)
         out["closest_plain_ms"] = cuda_ms(lambda: plain["closest"](*args, **kw), 3)
         out["any_plain_ms"] = cuda_ms(lambda: plain["any"](*args, **kw), 3)
-        log(f"    K1 {out['closest_ms']:.3f} ms (plain {out['closest_plain_ms']:.3f} ms), "
-            f"K2 {out['any_ms']:.3f} ms (plain {out['any_plain_ms']:.3f} ms)")
+        log(f"    K1 warp {out['closest_ms']:.4f} ms, per-thread {out['closest_thread_ms']:.4f} "
+            f"(plain {out['closest_plain_ms']:.3f}); K2 warp {out['any_ms']:.4f} ms, per-thread "
+            f"{out['any_thread_ms']:.4f} (plain {out['any_plain_ms']:.3f})")
     return out
+
+
+def tie_batch(tables, rays, plain):
+    """rays with t_max set to each hit ray's own plain-version closest t:
+    the first-hit-at-t_max rule decides every such ray."""
+    import torch
+
+    o, d, t_max = rays
+    t_p, _ = plain["closest"](o, d, t_max, tables.tris16, tables.caabb, tables.saabb,
+                              tables.slab_aabb, **tables.kw)
+    return o, d, torch.where(t_p < 1e30, t_p, t_max)
+
+
+def mostly_dead(rays, seed: int, live: float = 0.1):
+    """rays with all but a `live` share of the lanes dead (t_max 0)."""
+    import torch
+
+    o, d, t_max = rays
+    gen = torch.Generator(device=o.device).manual_seed(seed)
+    keep = torch.rand(t_max.shape, generator=gen, device=o.device) < live
+    return o, d, torch.where(keep, t_max, 0.0)
 
 
 def check_sphere_kernels(name, tables, rays, S, plain, reps=(20, 3)):
@@ -280,12 +352,13 @@ def check_sphere_kernels(name, tables, rays, S, plain, reps=(20, 3)):
     dead = t_max == 0
     if hit_k[dead].any() or h_k[dead].any():
         raise AssertionError(f"{name}: a dead lane (t_max 0) reported a sphere hit")
-    log(f"  {name}: {n} rays, {int(hit_k.sum())} closest hits, {int(h_k.sum())} any hits, "
-        f"{int(diff.sum())} tie spheres — masks equal, t bit-equal, spheres equal up to ties")
+    log(f"  {name}: {n} rays ({int((t_max > 0).sum())} live), {int(hit_k.sum())} closest hits, "
+        f"{int(h_k.sum())} any hits, {int(diff.sum())} tie spheres — masks equal, t bit-equal, "
+        f"spheres equal up to ties")
     out = {"max_abs_err": (t_k[hit_k] - t_p[hit_k]).abs().max().item() if hit_k.any() else 0.0,
            "any_max_abs_err": (h_k.float() - h_p.float()).abs().max().item() if n else 0.0,
            "entered": int(entered.sum()), "any_entered": int(any_entered.sum()), "n": n,
-           "table_bytes": table_bytes(*args[3:])}
+           "live": int((t_max > 0).sum()), "table_bytes": table_bytes(*args[3:])}
     if reps:
         out["closest_ms"] = cuda_ms(lambda: S.sphere_closest_hit_tables(*args, **kw), reps[0])
         out["any_ms"] = cuda_ms(lambda: S.sphere_any_hit_tables(*args, **kw), reps[0])
@@ -297,35 +370,76 @@ def check_sphere_kernels(name, tables, rays, S, plain, reps=(20, 3)):
 
 
 def check_stats(name, tables, rays, K, plain, reps=None):
-    """K1 stats=True vs the plain version's stats; returns the entered-tile
-    sum and, with reps, the stats kernel's and the plain stats' times."""
+    """K1 stats=True through both walks vs the plain version's stats (and t
+    bit-equal to it); returns the entered-tile sum and, with reps, both
+    walks' times with and without stats (in turns) and the plain ones."""
     import torch
 
     o, d, t_max = rays
     args = (o, d, t_max, tables.tris16, tables.caabb, tables.saabb, tables.slab_aabb)
-    t0, r0 = K.tri_closest_hit_tables(*args, **tables.kw)
-    t1, r1, ent_k, imp_k = K.tri_closest_hit_tables(*args, **tables.kw, stats=True)
-    torch.cuda.synchronize()
-    _, _, ent_p, imp_p = plain["closest"](*args, **tables.kw, stats=True)
-    if not (torch.equal(t0, t1) and torch.equal(r0, r1)):
-        raise AssertionError(f"{name}: stats=True changed K1's (t, row)")
-    if not (torch.equal(ent_k, ent_p) and torch.equal(imp_k, imp_p)):
-        raise AssertionError(f"{name}: K1 stats differ from the plain stats on "
-                             f"{int(((ent_k != ent_p) | (imp_k != imp_p)).sum())} rays")
-    if (imp_k > ent_k).any() or int(ent_k.max()) > tables.caabb.shape[0]:
+    kw = tables.kw
+    t_p, r_p, ent_p, imp_p = plain["closest"](*args, **kw, stats=True)
+    hit = r_p >= 0
+    err = lambda t: (t[hit] - t_p[hit]).abs().max().item() if hit.any() else 0.0  # noqa: E731
+    errs = {}
+    for walk, fn, sfx in (("warp", K.tri_closest_hit_warp, ""),
+                          ("per-thread", K.tri_closest_hit_thread, "thread_")):
+        t0, r0 = fn(*args, **kw)
+        t1, r1, ent_k, imp_k = fn(*args, **kw, stats=True)
+        torch.cuda.synchronize()
+        if not (torch.equal(t0, t1) and torch.equal(r0, r1)):
+            raise AssertionError(f"{name}: stats=True changed the {walk} K1's (t, row)")
+        hold_closest(name, tables, rays, t1, r1, t_p, r_p, f"{walk} K1 (stats) vs plain")
+        if not (torch.equal(ent_k, ent_p) and torch.equal(imp_k, imp_p)):
+            raise AssertionError(f"{name}: {walk} K1 stats differ from the plain stats on "
+                                 f"{int(((ent_k != ent_p) | (imp_k != imp_p)).sum())} rays")
+        errs[sfx + "max_abs_err"], errs["stats_" + sfx + "max_abs_err"] = err(t0), err(t1)
+    if (imp_p > ent_p).any() or int(ent_p.max()) > tables.caabb.shape[0]:
         raise AssertionError(f"{name}: stats break improved <= entered <= n_clusters")
-    out = {"entered": int(ent_k.sum()), "improved": int(imp_k.sum()), "n": o.shape[0],
-           "table_bytes": table_bytes(*args[3:]), "block": tables.kw["block_t"]}
-    log(f"  {name}: {o.shape[0]} rays, entered tiles {out['entered']} "
+    out = {"entered": int(ent_p.sum()), "improved": int(imp_p.sum()), "n": o.shape[0],
+           "live": int((t_max > 0).sum()), "table_bytes": table_bytes(*args[3:]),
+           "block": kw["block_t"], **errs}
+    log(f"  {name}: {o.shape[0]} rays ({out['live']} live), entered tiles {out['entered']} "
         f"({out['entered'] / o.shape[0]:.2f}/ray of {tables.caabb.shape[0]} clusters), "
-        f"improved {out['improved']} — stats equal, (t, row) unchanged")
+        f"improved {out['improved']} — warp and per-thread stats equal to the plain stats, "
+        f"t bit-equal, (t, row) unchanged by stats")
     if reps:
-        out["ms"] = cuda_ms(lambda: K.tri_closest_hit_tables(*args, **tables.kw), reps[0])
-        out["stats_ms"] = cuda_ms(
-            lambda: K.tri_closest_hit_tables(*args, **tables.kw, stats=True), reps[0])
-        out["plain_ms"] = cuda_ms(lambda: plain["closest"](*args, **tables.kw), reps[1])
-        out["stats_plain_ms"] = cuda_ms(
-            lambda: plain["closest"](*args, **tables.kw, stats=True), reps[1])
+        out["thread_ms"], out["ms"] = turns(lambda: K.tri_closest_hit_thread(*args, **kw),
+                                            lambda: K.tri_closest_hit_warp(*args, **kw), reps[0])
+        out["stats_thread_ms"], out["stats_ms"] = turns(
+            lambda: K.tri_closest_hit_thread(*args, **kw, stats=True),
+            lambda: K.tri_closest_hit_warp(*args, **kw, stats=True), reps[0])
+        out["plain_ms"] = cuda_ms(lambda: plain["closest"](*args, **kw), reps[1])
+        out["stats_plain_ms"] = cuda_ms(lambda: plain["closest"](*args, **kw, stats=True),
+                                        reps[1])
+    return out
+
+
+def check_any(name, tables, rays, K, plain, reps):
+    """K2 through both walks vs the plain version on one batch (shadow
+    rays); returns the plain version's entered tiles (the bound's input) and
+    both walks' times in turns and the plain one's."""
+    import torch
+
+    o, d, t_max = rays
+    args = (o, d, t_max, tables.tris16, tables.caabb, tables.saabb, tables.slab_aabb)
+    kw = tables.kw
+    h_w = K.tri_any_hit_warp(*args, **kw)
+    h_t = K.tri_any_hit_thread(*args, **kw)
+    torch.cuda.synchronize()
+    h_p, entered = plain["any"](*args, **kw, stats=True)
+    hold_any(name, h_w, h_p, t_max, "warp K2 vs plain")
+    hold_any(name, h_t, h_p, t_max, "per-thread K2 vs plain")
+    err = lambda h: (h.float() - h_p.float()).abs().max().item() if h.numel() else 0.0  # noqa: E731
+    out = {"any_entered": int(entered.sum()), "n": o.shape[0], "live": int((t_max > 0).sum()),
+           "hits": int(h_w.sum()), "table_bytes": table_bytes(*args[3:]), "block": kw["block_t"],
+           "max_abs_err": err(h_w), "thread_max_abs_err": err(h_t)}
+    out["thread_ms"], out["ms"] = turns(lambda: K.tri_any_hit_thread(*args, **kw),
+                                        lambda: K.tri_any_hit_warp(*args, **kw), reps[0])
+    out["plain_ms"] = cuda_ms(lambda: plain["any"](*args, **kw), reps[1])
+    log(f"  {name}: {out['n']} rays ({out['live']} live), {out['hits']} any hits, "
+        f"{out['any_entered']} entered tiles (plain) — warp and per-thread K2 equal to the plain "
+        f"version")
     return out
 
 
@@ -377,7 +491,8 @@ def check_group(name, gtab, ktab, gprim, kprim, rays, G, t_any=None, plain_reps=
     out = {"max_abs_err": (t4[hit] - t_p[hit]).abs().max().item() if hit.any() else 0.0,
            "any_max_abs_err": (h4.float() - h_p.float()).abs().max().item() if h4.numel() else 0.0,
            "group_entered": int(ent8.sum()), "group_any_entered": int(any_ent8.sum()),
-           "n": o.shape[0], "table_bytes": table_bytes(*c_args[3:])}
+           "n": o.shape[0], "live": int((t_max > 0).sum()), "any_live": int((t_any > 0).sum()),
+           "table_bytes": table_bytes(*c_args[3:])}
     if plain_reps:
         out["plain_ms"] = cuda_ms(lambda: G.tri_closest_hit_groups_plain(*c_args, **kw), plain_reps)
         out["any_plain_ms"] = cuda_ms(lambda: G.tri_any_hit_groups_plain(*a_args, **kw),
@@ -435,6 +550,7 @@ def main() -> int:
         f"{stab_host.cluster_aabbs.shape[0]} clusters of {stab_host.block_t}, "
         f"{stab_host.n_slabs} slabs, supers {stab_host.use_supers}, "
         f"{int(np.isnan(stab_host.cluster_aabbs[:, 0]).sum())} NaN padding clusters")
+    log(f"[kernels] launch plans: cornell_tex the {ctab.plan} walk, soup the {stab.plan} walk")
     box_c = (278.0, 274.0, 280.0)
     chunk = CHUNK_RAYS["cuda"]
     timings = {}
@@ -446,9 +562,25 @@ def main() -> int:
             timings[("soup", n)] = check_kernels(
                 f"soup5k/{n}", stab, make_rays(n, 20 + n % 89, (0, 0, 0), 9.0, dev), K, plain,
                 timing=True)
+    # t_max at each ray's exact hit t (the first-hit-at-t_max rule), and
+    # ~90% dead lanes at the render chunk
+    for tname, tab, c, spread in (("cornell_tex", ctab, box_c, 280.0),
+                                  ("soup5k", stab, (0, 0, 0), 9.0)):
+        check_kernels(f"{tname}/32768 t_max = hit t", tab,
+                      tie_batch(tab, make_rays(1 << 15, 70, c, spread, dev), plain), K, plain,
+                      timing=False)
+    timings[("soup 90% dead", chunk)] = check_kernels(
+        f"soup5k/{chunk} 90% dead", stab, mostly_dead(make_rays(chunk, 71, (0, 0, 0), 9.0, dev), 72),
+        K, plain, timing=True)
     # the headline shape's entered tiles, for the K1/K2 bounds
     head_rays = make_rays(chunk, 10 + chunk % 97, box_c, 280.0, dev)
     head_stats = check_stats(f"cornell_tex/{chunk} stats", ctab, head_rays, K, plain)
+    hs = timings[("cornell", chunk)]
+    log(f"[kernels] the plan at block_t 8 (PER_THREAD_MAX_BLOCK_T {K.PER_THREAD_MAX_BLOCK_T}): "
+        f"headline shape K1 warp {hs['closest_ms']:.4f} ms vs per-thread "
+        f"{hs['closest_thread_ms']:.4f}, K2 warp {hs['any_ms']:.4f} vs per-thread "
+        f"{hs['any_thread_ms']:.4f} — the per-thread walk "
+        f"{'is faster there, as the plan assumes' if hs['closest_thread_ms'] < hs['closest_ms'] else 'is NOT faster there: revisit the plan'}")
     _, head_any_entered = plain["any"](*head_rays, ctab.tris16, ctab.caabb, ctab.saabb,
                                        ctab.slab_aabb, **ctab.kw, stats=True)
     head_any_entered = int(head_any_entered.sum())
@@ -509,6 +641,18 @@ def main() -> int:
 
     calls = {"plain": 0}
 
+    def walk_counters(walk):
+        """(the K1 / K2 counters of `walk`, those of the other walk)."""
+        sfx = {"warp": ("", "_thread"), "thread": ("_thread", "")}[walk]
+        return tuple(("tri_closest" + x, "tri_any" + x) for x in sfx)
+
+    def ran_alone(launches, walk):
+        """The path's K1 / K2 walk launched, the other walk and the plain
+        versions did not run on the card."""
+        need, off = walk_counters(walk)
+        return min(launches[k] for k in need) > 0 and not any(launches[k] for k in off) \
+            and not calls["plain"]
+
     def forbid(fn):
         def wrapped(o, *a, **kw):
             if o.device.type == "cuda":
@@ -536,8 +680,9 @@ def main() -> int:
         raise AssertionError("slice image has the wrong shape or non-finite values")
     if frac > SLICE_MAX_OUTLIER_FRAC or sum_rel > SLICE_SUM_RTOL:
         raise AssertionError("slice render disagrees with tests/goldens/cornell_tex.npy")
-    if min(launches_small["tri_closest"], launches_small["tri_any"]) <= 0 or calls["plain"]:
-        raise AssertionError("the slice did not run through both kernels alone")
+    if not ran_alone(launches_small, ctab.plan):
+        raise AssertionError(f"the slice did not run through the plan's K1 / K2 "
+                             f"({ctab.plan} walk) alone")
     img_cpu = render_scene(small, device="cpu", show_progress=False)
     cpu_close = np.isclose(img, img_cpu, rtol=SLICE_RTOL, atol=SLICE_ATOL)
     log(f"[slice] card vs the port on the CPU (plain versions): max |Δ| "
@@ -572,8 +717,9 @@ def main() -> int:
         raise AssertionError("headline image has the wrong shape or non-finite values")
     if seg_rel > SEG_RTOL or sum_rel > SUM_RTOL:
         raise AssertionError("headline disagrees with the JAX anchors")
-    if min(launches["tri_closest"], launches["tri_any"]) <= 0 or calls["plain"]:
-        raise AssertionError("the headline did not run through both kernels alone")
+    if not ran_alone(launches, ctab.plan):
+        raise AssertionError(f"the headline did not run through the plan's K1 / K2 "
+                             f"({ctab.plan} walk) alone")
 
     # ---- 6. the sphere-field and mesh configs
     phases.start("6 configs")
@@ -591,13 +737,15 @@ def main() -> int:
         return wrapped
 
     K.tri_closest_hit_tables = capturing(K.tri_closest_hit_tables, "tri_closest")
+    K.tri_any_hit_tables = capturing(K.tri_any_hit_tables, "tri_any")
     S.sphere_closest_hit_tables = capturing(S.sphere_closest_hit_tables, "sphere_closest")
     S.sphere_any_hit_tables = capturing(S.sphere_any_hit_tables, "sphere_any")
     # closest-hit calls per bounce: the hit, then the MIS leg's (t, prim);
     # so call 3 is bounce 1's hit (2 for the any-hit shadow rays), and call
-    # 5 bounce 2's
+    # 5 bounce 2's (3 for its shadow rays)
     capture_at = {"spherefield10k_256": {"sphere_closest": 3, "sphere_any": 2},
-                  "mesh10k_512": {"tri_closest": 5}, "mesh100k_512": {"tri_closest": 5}}
+                  "mesh10k_512": {"tri_closest": 5, "tri_any": 3},
+                  "mesh100k_512": {"tri_closest": 5, "tri_any": 3}}
     config_runs = {}
     for name, (fname, cres, cspp, cdepth, a_seg, a_sum) in CONFIGS.items():
         sc = config_scene(name)
@@ -641,10 +789,14 @@ def main() -> int:
             raise AssertionError(f"{name} disagrees with the JAX anchors")
         if calls["plain"]:
             raise AssertionError(f"{name}: a plain version ran on the card")
-        need = (["sphere_closest", "sphere_any"] if name.startswith("sphere") else
-                ["tri_closest", "tri_any"])
-        if min(launches[k] for k in need) <= 0:
-            raise AssertionError(f"{name} did not launch {need}")
+        # the plan's walk: 8-row clusters (aggregate.plan_tri_kernel's small
+        # scenes) keep the per-thread walk (launch_plan)
+        walk = "thread" if sc.tris.count <= AG.SMALL_SCENE_TRIS else "warp"
+        if not ran_alone(launches, walk):
+            raise AssertionError(f"{name} did not run through the {walk} walk's K1 / K2 alone")
+        if name.startswith("sphere") and min(launches["sphere_closest"],
+                                             launches["sphere_any"]) <= 0:
+            raise AssertionError(f"{name} did not launch K3")
         if name in ("mesh100k_512", "mesh600k_256") and sorts <= 0:
             raise AssertionError(f"{name}: the ray sort did not run")
         del plan
@@ -656,31 +808,43 @@ def main() -> int:
                                 captured[("spherefield10k_256", "sphere_closest")], S, plain)
     f_any = check_sphere_kernels("spherefield10k bounce 1 (shadow)", ftab,
                                  captured[("spherefield10k_256", "sphere_any")], S, plain)
-    mesh_rows = {}
+    mesh_rows, mesh_any = {}, {}
     for name in ("mesh10k_512", "mesh100k_512"):
         sc = config_scene(name)
         tab = mtab if name == "mesh100k_512" else K.DeviceTables(
             plan_tri_kernel(sc.tris, np.asarray(sc.camera.camera_to_world)[:3, 3]), dev)
         mesh_rows[name] = check_stats(f"{name} bounce 2", tab, captured[(name, "tri_closest")],
                                       K, plain, reps=(5, 1))
+        mesh_any[name] = check_any(f"{name} bounce-2 shadow rays", tab,
+                                   captured[(name, "tri_any")], K, plain, reps=(5, 1))
     stats_launches = K.LAUNCHES["tri_closest_stats"]
+    stats_thread_launches = K.LAUNCHES["tri_closest_stats_thread"]
 
-    def k1_bound(st, n, tab_b, out_b=8):
-        return bound(n, out_b, tab_b, st["entered"], st["block"], TRI_TEST_OPS)
+    # every bound counts a live ray's o, d and t_max and a dead ray's t_max
+    def k1_bound(st, out_b=8):
+        return bound(st["n"], st["live"], out_b, st["table_bytes"], st["entered"], st["block"],
+                     TRI_TEST_OPS)
+
+    def k2_bound(st):
+        return bound(st["n"], st["live"], 1, st["table_bytes"], st["any_entered"], st["block"],
+                     TRI_TEST_OPS)
 
     head_shape = timings[("cornell", chunk)]
-    c_tab_b = table_bytes(ctab.tris16, ctab.caabb, ctab.saabb, ctab.slab_aabb)
-    k1_b = k1_bound(head_stats, chunk, c_tab_b)
-    k2_b = bound(chunk, 1, c_tab_b, head_any_entered, ctab.kw["block_t"], TRI_TEST_OPS)
-    k3c_b = bound(f_cl["n"], 8, f_cl["table_bytes"], f_cl["entered"], ftab.kw["block_s"],
-                  SPHERE_TEST_OPS)
-    k3a_b = bound(f_any["n"], 1, f_any["table_bytes"], f_any["any_entered"], ftab.kw["block_s"],
-                  SPHERE_TEST_OPS)
-    st100 = mesh_rows["mesh100k_512"]
-    k1s_b = k1_bound(st100, st100["n"], st100["table_bytes"], out_b=16)
-    log(f"[bounds] on {card}: K1 headline shape ({chunk} rays): {head_shape['closest_ms']:.4f} ms, "
-        f"bound {k1_b[0]:.4f} ms ({k1_b[1]}; {head_stats['entered']} entered tiles); "
-        f"K2: {head_shape['any_ms']:.4f} ms, bound {k2_b[0]:.4f} ms ({k2_b[1]}; "
+    k1_b = k1_bound(head_stats)
+    k2_b = k2_bound(dict(head_stats, any_entered=head_any_entered))
+    k3c_b = bound(f_cl["n"], f_cl["live"], 8, f_cl["table_bytes"], f_cl["entered"],
+                  ftab.kw["block_s"], SPHERE_TEST_OPS)
+    k3a_b = bound(f_any["n"], f_any["live"], 1, f_any["table_bytes"], f_any["any_entered"],
+                  ftab.kw["block_s"], SPHERE_TEST_OPS)
+    st100, any100 = mesh_rows["mesh100k_512"], mesh_any["mesh100k_512"]
+    k1_100_b = k1_bound(st100)
+    k2_100_b = k2_bound(any100)
+    k1s_b = k1_bound(st100, out_b=16)
+    log(f"[bounds] on {card}: K1 headline shape ({chunk} rays; the plan's walk there: "
+        f"{ctab.plan}): per-thread {head_shape['closest_thread_ms']:.4f} ms, warp "
+        f"{head_shape['closest_ms']:.4f} ms, bound {k1_b[0]:.4f} ms ({k1_b[1]}; "
+        f"{head_stats['entered']} entered tiles); K2 per-thread {head_shape['any_thread_ms']:.4f} "
+        f"ms, warp {head_shape['any_ms']:.4f} ms, bound {k2_b[0]:.4f} ms ({k2_b[1]}; "
         f"{head_any_entered} entered tiles)")
     log(f"[bounds] K3 at the sphere field's bounce ({f_cl['n']} rays): closest "
         f"{f_cl['closest_ms']:.4f} ms (plain {f_cl['closest_plain_ms']:.3f}), bound "
@@ -688,14 +852,22 @@ def main() -> int:
         f"{f_any['any_ms']:.4f} ms (plain {f_any['any_plain_ms']:.3f}), bound {k3a_b[0]:.4f} ms "
         f"({k3a_b[1]}; {f_any['any_entered']} entered tiles)")
     for name, st in mesh_rows.items():
-        b = k1_bound(st, st["n"], st["table_bytes"])
-        log(f"[bounds] K1 at {name}'s bounce-2 shape ({st['n']} rays): {st['ms']:.4f} ms "
-            f"(plain {st['plain_ms']:.3f}), bound {b[0]:.4f} ms ({b[1]}; {st['entered']} "
-            f"entered tiles, {st['entered'] / st['n']:.2f}/ray); with stats {st['stats_ms']:.4f} ms "
-            f"(plain {st['stats_plain_ms']:.3f})")
+        b = k1_bound(st)
+        log(f"[bounds] K1 at {name}'s bounce-2 shape ({st['n']} rays, {st['live']} live): warp "
+            f"{st['ms']:.4f} ms, per-thread {st['thread_ms']:.4f} ms (plain {st['plain_ms']:.3f}), "
+            f"bound {b[0]:.4f} ms ({b[1]}; {st['entered']} entered tiles, "
+            f"{st['entered'] / st['n']:.2f}/ray); with stats warp {st['stats_ms']:.4f} ms, "
+            f"per-thread {st['stats_thread_ms']:.4f} ms (plain {st['stats_plain_ms']:.3f})")
+        sa = mesh_any[name]
+        b = k2_bound(sa)
+        log(f"[bounds] K2 at {name}'s bounce-2 shadow shape ({sa['n']} rays, {sa['live']} live): "
+            f"warp {sa['ms']:.4f} ms, per-thread {sa['thread_ms']:.4f} ms (plain "
+            f"{sa['plain_ms']:.3f}), bound {b[0]:.4f} ms ({b[1]}; {sa['any_entered']} entered "
+            f"tiles of the plain version)")
     for (tab, n), tm in sorted(timings.items()):
-        log(f"[kernels] {tab}/{n} rays on {card}: K1 {tm['closest_ms']:.4f} ms (plain "
-            f"{tm['closest_plain_ms']:.4f}), K2 {tm['any_ms']:.4f} ms (plain "
+        log(f"[kernels] {tab}/{n} rays on {card}: K1 warp {tm['closest_ms']:.4f} ms, per-thread "
+            f"{tm['closest_thread_ms']:.4f} (plain {tm['closest_plain_ms']:.4f}); K2 warp "
+            f"{tm['any_ms']:.4f} ms, per-thread {tm['any_thread_ms']:.4f} (plain "
             f"{tm['any_plain_ms']:.4f})")
     for (tab, n), tm in sorted(sph_timings.items()):
         log(f"[spheres] {tab}/{n} rays on {card}: K3 closest {tm['closest_ms']:.4f} ms (plain "
@@ -726,14 +898,15 @@ def main() -> int:
     ab = {}
     for name in ("mesh10k_512", "mesh100k_512"):
         wl = Workload(config_scene(name), dev, tables=mtab if name == "mesh100k_512" else None)
-        ab[name] = PK.analyze(name, chunk, PROBE_DEPTH, "cuda", wl=wl, keep=(2,))
+        ab[name] = PK.analyze(name, chunk, PROBE_DEPTH, "cuda", wl=wl, keep=(1, 2))
     ab_launches = dict(K.LAUNCHES)
     for s_ab in ab.values():
-        log(f"[probes] K1 / K4 A/B on {card}:\n" + PK.report(s_ab))
+        log(f"[probes] K1 (warp walk) / per-thread K1 / K4 A/B on {card}:\n" + PK.report(s_ab))
         PK.check(s_ab)
     log(f"[probes] A/B launches: {ab_launches}")
-    if min(ab_launches["tri_closest_group"], ab_launches["tri_any_group"]) <= 0:
-        raise AssertionError("the probe path did not launch K4")
+    if min(ab_launches[k] for k in ("tri_closest_group", "tri_any_group", "tri_closest",
+                                    "tri_any", "tri_closest_thread", "tri_any_thread")) <= 0:
+        raise AssertionError("the probe path did not launch K4 and both K1 / K2 walks")
 
     # K4 at mesh10k's bounce 2 against its plain version; its bound from
     # K1's per-ray entered tiles on the same rays (the function's least work)
@@ -749,8 +922,10 @@ def main() -> int:
                                **k1t.kw, stats=True)
     ent1, any_ent1 = int(ent1.sum()), int(any_ent1.sum())
     k1_block = k1t.kw["block_t"]
-    k4c_b = bound(k4_10["n"], 8, k4_10["table_bytes"], ent1, k1_block, TRI_TEST_OPS)
-    k4a_b = bound(k4_10["n"], 1, k4_10["table_bytes"], any_ent1, k1_block, TRI_TEST_OPS)
+    k4c_b = bound(k4_10["n"], k4_10["live"], 8, k4_10["table_bytes"], ent1, k1_block,
+                  TRI_TEST_OPS)
+    k4a_b = bound(k4_10["n"], k4_10["any_live"], 1, k4_10["table_bytes"], any_ent1, k1_block,
+                  TRI_TEST_OPS)
     r2 = s10["bounces"][2]
     log(f"[bounds] K4 at mesh10k's bounce-2 shape ({k4_10['n']} rays) on {card}: closest "
         f"{r2['k4_ms']:.4f} ms (K1 {r2['k1_ms']:.4f}; plain {k4_10['plain_ms']:.3f}), bound "
@@ -791,7 +966,9 @@ def main() -> int:
     phases.start()
     # ---- report
     src = "curry_pbrt_tpu_torch/csrc/intersect.cu"
+    wsrc = "curry_pbrt_tpu_torch/csrc/intersect_warp.cu"
     field_l = config_runs["spherefield10k_256"]["launches"]
+    m100_l = config_runs["mesh100k_512"]["launches"]
 
     def entry(name, replaces, launches, err, ms, plain_ms, b, source=src):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -802,19 +979,29 @@ def main() -> int:
     sph_k = "curry_pbrt_tpu/ops/pallas/sphere_kernel.py"
     grp_k = "curry_pbrt_tpu/ops/pallas/intersect_group.py"
     grp_src = "curry_pbrt_tpu_torch/csrc/intersect_group.cu"
+    # K1 / K2: the warp walk at mesh100k's bounce-2 shapes (its render path:
+    # launches per pass), the per-thread walk at the headline shape (its
+    # path, by the plan's rule for 8-row clusters)
     kernels = [
-        entry("tri_closest_hit", f"{tri_k}:709", head_launches["tri_closest"],
-              head_shape["max_abs_err"], head_shape["closest_ms"],
+        entry("tri_closest_hit", f"{tri_k}:709", m100_l["tri_closest"], st100["max_abs_err"],
+              st100["ms"], st100["plain_ms"], k1_100_b, wsrc),
+        entry("tri_any_hit", f"{tri_k}:760", m100_l["tri_any"], any100["max_abs_err"],
+              any100["ms"], any100["plain_ms"], k2_100_b, wsrc),
+        entry("tri_closest_hit_stats", f"{tri_k}:712", stats_launches,
+              st100["stats_max_abs_err"], st100["stats_ms"], st100["stats_plain_ms"], k1s_b, wsrc),
+        entry("tri_closest_hit_thread", f"{tri_k}:709", head_launches["tri_closest_thread"],
+              head_shape["thread_max_abs_err"], head_shape["closest_thread_ms"],
               head_shape["closest_plain_ms"], k1_b),
-        entry("tri_any_hit", f"{tri_k}:760", head_launches["tri_any"],
-              head_shape["any_max_abs_err"], head_shape["any_ms"], head_shape["any_plain_ms"],
-              k2_b),
+        entry("tri_any_hit_thread", f"{tri_k}:760", head_launches["tri_any_thread"],
+              head_shape["any_thread_max_abs_err"], head_shape["any_thread_ms"],
+              head_shape["any_plain_ms"], k2_b),
+        entry("tri_closest_hit_stats_thread", f"{tri_k}:712", stats_thread_launches,
+              st100["stats_thread_max_abs_err"], st100["stats_thread_ms"],
+              st100["stats_plain_ms"], k1s_b),
         entry("sphere_closest_hit", f"{sph_k}:216", field_l["sphere_closest"],
               f_cl["max_abs_err"], f_cl["closest_ms"], f_cl["closest_plain_ms"], k3c_b),
         entry("sphere_any_hit", f"{sph_k}:256", field_l["sphere_any"], f_any["any_max_abs_err"],
               f_any["any_ms"], f_any["any_plain_ms"], k3a_b),
-        entry("tri_closest_hit_stats", f"{tri_k}:712", stats_launches, 0.0, st100["stats_ms"],
-              st100["stats_plain_ms"], k1s_b),
         entry("tri_closest_hit_groups", f"{grp_k}:345", ab_launches["tri_closest_group"],
               k4_10["max_abs_err"], r2["k4_ms"], k4_10["plain_ms"], k4c_b, grp_src),
         entry("tri_any_hit_groups", f"{grp_k}:382", ab_launches["tri_any_group"],

@@ -36,9 +36,12 @@
 // at the same time, so rows come from L1/L2 as broadcasts and device memory
 // traffic is O(rays). The design keeps the TPU kernel's block-granular cull
 // at thread granularity: one thread per ray, each with its own best t, so a
-// ray never tests a cluster that only its neighbours enter. Staging the
-// tables in shared memory and warp-level voting are left for later work;
-// the ray sort (ops/kernels/aggregate.py) groups similar rays into warps.
+// ray never tests a cluster that only its neighbours enter.
+//
+// The triangle instantiations (curry_tri_*_thread) are the A/B baseline of
+// the warp-cooperative K1/K2 of intersect_warp.cu, which the render path
+// launches: only chip_smoke.py and the tools call them. The sphere
+// instantiations are K3's kernels.
 //
 // Built by ops/kernels/build.py with nvcc -fmad=false (no fast math, IEEE
 // division and square root); the plain PyTorch versions beside the wrappers
@@ -192,10 +195,11 @@ int launch_any(const void* o, const void* d, const void* t_max, const Tables& tb
 
 // The C interface (CURRY_TABLE_ARGS, intersect.cuh).
 
-// Closest hit over triangles; the stats instantiation (K1b) when entered_out
-// and improved_out are not null.
-extern "C" int curry_tri_closest_hit(CURRY_TABLE_ARGS, void* t_out, void* row_out,
-                                     void* entered_out, void* improved_out, void* stream) {
+// Closest hit over triangles, per thread; the stats instantiation (K1b) when
+// entered_out and improved_out are not null.
+extern "C" int curry_tri_closest_hit_thread(CURRY_TABLE_ARGS, void* t_out, void* row_out,
+                                            void* entered_out, void* improved_out,
+                                            void* stream) {
     using curry::TriPrim;
     if (entered_out != nullptr)
         return curry::launch_closest<TriPrim, true>(o, d, t_max, CURRY_TABLES, n, t_out, row_out,
@@ -204,7 +208,7 @@ extern "C" int curry_tri_closest_hit(CURRY_TABLE_ARGS, void* t_out, void* row_ou
                                                  nullptr, nullptr, stream);
 }
 
-extern "C" int curry_tri_any_hit(CURRY_TABLE_ARGS, void* hit_out, void* stream) {
+extern "C" int curry_tri_any_hit_thread(CURRY_TABLE_ARGS, void* hit_out, void* stream) {
     return curry::launch_any<curry::TriPrim>(o, d, t_max, CURRY_TABLES, n, hit_out, stream);
 }
 

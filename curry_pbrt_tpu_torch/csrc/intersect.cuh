@@ -93,22 +93,54 @@ __device__ __forceinline__ bool box_enter(const float* box, const Ray& r, float 
     return (tn <= tf) && (tn < t_best) && (tf > 0.0f) && (t_best > 0.0f);
 }
 
+// box_enter split at the bound: the ray's entry distance tn into the box,
+// or NaN where box_enter fails whatever the bound (the slab intervals miss
+// each other, the box lies behind the ray, or one of the six slab distances
+// is NaN — an empty cluster's box), so that
+//   box_enter(box, r, t_best, t_scale) == (box_near(box, r, t_scale) < t_best) && (t_best > 0).
+// Without a NaN among the slab distances fminf / fmaxf equal nan_min /
+// nan_max operation for operation; with one, box_enter fails on the NaN and
+// box_near returns NaN. 25 f32 operations, one NaN flag instead of twelve.
+__device__ __forceinline__ float box_near(const float* box, const Ray& r, float t_scale) {
+    const float t0x = (box[0] - r.ox) * r.ix, t1x = (box[3] - r.ox) * r.ix;
+    const float t0y = (box[1] - r.oy) * r.iy, t1y = (box[4] - r.oy) * r.iy;
+    const float t0z = (box[2] - r.oz) * r.iz, t1z = (box[5] - r.oz) * r.iz;
+    const bool nan = isnan(t0x) | isnan(t1x) | isnan(t0y) | isnan(t1y) | isnan(t0z) | isnan(t1z);
+    const float nx = fminf(t0x, t1x), fx = fmaxf(t0x, t1x) * t_scale;
+    const float ny = fminf(t0y, t1y), fy = fmaxf(t0y, t1y) * t_scale;
+    const float nz = fminf(t0z, t1z), fz = fmaxf(t0z, t1z) * t_scale;
+    const float tn = fmaxf(nx, fmaxf(ny, nz));
+    const float tf = fminf(fx, fminf(fy, fz));
+    return (!nan && (tn <= tf) && (tf > 0.0f)) ? tn : __int_as_float(0x7fc00000);
+}
+
 // Watertight test of one ray against one tris16 row (p0 xyz, p1 xyz, p2 xyz,
 // valid ±1), with t_best as the range bound. Returns the hit t, or FLT_MAX
 // where there is no hit. 84 f32 operations (add, sub, mul, div, abs, min,
 // max; comparisons and selects not counted) on a valid row.
+//
+// Template arguments, for callers whose lanes share one ray (the warp walk,
+// intersect_warp.cu); the defaults are the per-thread test:
+//   KZ >= 0: the ray's dominant axis, known at compile time (r.kz == KZ), so
+//     the permutation costs no selects;
+//   FAST_MAX: fmaxf instead of nan_max in the error bounds. The result is the
+//     same: a NaN among the x, y or z terms makes det or t_scaled NaN, and so
+//     fails in_range, whatever the bounds say.
+template <int KZ = -1, bool FAST_MAX = false>
 __device__ __forceinline__ float tri_test(const float* tri, const Ray& r, float t_best,
                                           const Consts& k) {
     if (!(tri[9] > 0.0f)) return FLT_MAX;  // padding row
+    const int kz = KZ >= 0 ? KZ : r.kz;
+    auto vmax = [](float a, float b) { return FAST_MAX ? fmaxf(a, b) : nan_max(a, b); };
     float q[3][3];  // translated + permuted vertices: q[v] = (x, y, z)
 #pragma unroll
     for (int v = 0; v < 3; ++v) {
         const float tx = tri[3 * v + 0] - r.ox;
         const float ty = tri[3 * v + 1] - r.oy;
         const float tz = tri[3 * v + 2] - r.oz;
-        q[v][0] = select_kz(r.kz, ty, tz, tx);
-        q[v][1] = select_kz(r.kz, tz, tx, ty);
-        q[v][2] = select_kz(r.kz, tx, ty, tz);
+        q[v][0] = select_kz(kz, ty, tz, tx);
+        q[v][1] = select_kz(kz, tz, tx, ty);
+        q[v][2] = select_kz(kz, tx, ty, tz);
     }
     const float x0 = q[0][0] + r.sx * q[0][2], y0 = q[0][1] + r.sy * q[0][2];
     const float x1 = q[1][0] + r.sx * q[1][2], y1 = q[1][1] + r.sy * q[1][2];
@@ -127,14 +159,14 @@ __device__ __forceinline__ float tri_test(const float* tri, const Ray& r, float 
     const float t = t_scaled * inv_det;
 
     // conservative fp-error rejection (reference triangle.rs:243-257)
-    const float max_zt = nan_max(fabsf(z0), nan_max(fabsf(z1), fabsf(z2)));
-    const float max_xt = nan_max(fabsf(x0), nan_max(fabsf(x1), fabsf(x2)));
-    const float max_yt = nan_max(fabsf(y0), nan_max(fabsf(y1), fabsf(y2)));
+    const float max_zt = vmax(fabsf(z0), vmax(fabsf(z1), fabsf(z2)));
+    const float max_xt = vmax(fabsf(x0), vmax(fabsf(x1), fabsf(x2)));
+    const float max_yt = vmax(fabsf(y0), vmax(fabsf(y1), fabsf(y2)));
     const float delta_z = k.g3 * max_zt;
     const float delta_x = k.g5 * (max_xt + max_zt);
     const float delta_y = k.g5 * (max_yt + max_zt);
     const float delta_e = 2.0f * (k.g2 * max_xt * max_yt + delta_y * max_xt + delta_x * max_yt);
-    const float max_e = nan_max(fabsf(e0), nan_max(fabsf(e1), fabsf(e2)));
+    const float max_e = vmax(fabsf(e0), vmax(fabsf(e1), fabsf(e2)));
     const float delta_t =
         3.0f * (k.g3 * max_e * max_zt + delta_e * max_zt + delta_z * max_e) * fabsf(inv_det);
 

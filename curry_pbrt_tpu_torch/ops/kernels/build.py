@@ -2,9 +2,10 @@
 
 The sources are compiled at first use into build/kernels/ under the repo
 root, for Hopper only (sm_90a), as a shared library with a plain C
-interface — no PyTorch headers, so a build takes seconds, not minutes. The
-library name carries a hash of the sources and flags, so an edited source is
-never served from a stale build.
+interface — no PyTorch headers, so a build takes seconds, not minutes: one
+nvcc per source, all started together, then one link. The library name
+carries a hash of the sources and flags, so an edited source is never
+served from a stale build.
 
 Flags that are decisions, not defaults:
   -fmad=false   no contraction of a*b+c into an FMA: the watertight
@@ -31,10 +32,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = GENCODE + (
     "-std=c++17", "-O3", "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 
@@ -71,13 +72,23 @@ def build(verbose: bool = False) -> Path:
     cu, _ = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *map(str, cu)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+    objs = [tmp.with_suffix(f".{src.stem}.o") for src in cu]
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    procs = [subprocess.Popen([nvcc_path(), *NVCC_FLAGS, *ptxas, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(cu, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    for src, p, log in zip(cu, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name} ({p.returncode}):\n{log}")
     if verbose:
-        print(res.stdout + res.stderr, end="")
+        print("".join(logs), end="")
+    res = subprocess.run([nvcc_path(), *GENCODE, "-shared", "-o", str(tmp), *map(str, objs)],
+                         capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink()
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
     return out
 
@@ -87,26 +98,34 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 
+# o, d, t_max, prims, caabb, saabb, slab; n, block, clusters_per_slab,
+# n_slabs, use_supers; g2, g3, g5, t_scale (intersect.cuh CURRY_TABLE_ARGS)
+_TABLE_ARGS = [_P] * 7 + [_I] * 5 + [_F] * 4
+# Every extern "C" entry point of csrc/*.cu and its argument types; each
+# returns a cudaError_t as int.
+ENTRY_POINTS = {
+    # intersect_warp.cu: t_out, row_out, entered_out, improved_out / hit_out; stream
+    "curry_tri_closest_hit_warp": _TABLE_ARGS + [_P] * 5,
+    "curry_tri_any_hit_warp": _TABLE_ARGS + [_P] * 2,
+    # intersect.cu
+    "curry_tri_closest_hit_thread": _TABLE_ARGS + [_P] * 5,
+    "curry_tri_any_hit_thread": _TABLE_ARGS + [_P] * 2,
+    "curry_sphere_closest_hit": _TABLE_ARGS + [_P] * 3,  # t_out, row_out; stream
+    "curry_sphere_any_hit": _TABLE_ARGS + [_P] * 2,
+    # intersect_group.cu
+    "curry_tri_closest_hit_groups": _TABLE_ARGS + [_P] * 3,
+    "curry_tri_any_hit_groups": _TABLE_ARGS + [_P] * 2,
+    # slab_grid.cu: tab, rays, slabs; n_slabs, slab_rows, block_rays, n; out, stream
+    "curry_slab_grid": [_P] * 3 + [_I] * 4 + [_P] * 2,
+}
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare every entry point's C signature."""
     lib = ctypes.CDLL(str(build()))
-    # o, d, t_max, prims, caabb, saabb, slab; n, block, clusters_per_slab,
-    # n_slabs, use_supers; g2, g3, g5, t_scale (intersect.cu CURRY_TABLE_ARGS)
-    table_args = [_P] * 7 + [_I] * 5 + [_F] * 4
-    outputs = {  # + the output pointers and the stream
-        "curry_tri_closest_hit": 5,  # t_out, row_out, entered_out, improved_out
-        "curry_sphere_closest_hit": 3,  # t_out, row_out
-        "curry_tri_closest_hit_groups": 3,  # t_out, row_out (intersect_group.cu)
-        "curry_tri_any_hit": 2,  # hit_out
-        "curry_sphere_any_hit": 2,
-        "curry_tri_any_hit_groups": 2,
-    }
-    for name, n_ptrs in outputs.items():
+    for name, argtypes in ENTRY_POINTS.items():
         fn = getattr(lib, name)
-        fn.argtypes = table_args + [_P] * n_ptrs
+        fn.argtypes = argtypes
         fn.restype = _I
-    # tab, rays, slabs; n_slabs, slab_rows, block_rays, n; out, stream (slab_grid.cu)
-    lib.curry_slab_grid.argtypes = [_P] * 3 + [_I] * 4 + [_P] * 2
-    lib.curry_slab_grid.restype = _I
     return lib

@@ -1,6 +1,6 @@
 """Closest-hit (K1) and any-hit (K2) triangle traversal over cluster tables:
 the host table construction, the wrappers of the CUDA kernels in
-csrc/intersect.cu, and their plain PyTorch versions.
+csrc/intersect_warp.cu, their launch plan, and their plain PyTorch versions.
 
 Counterpart of the JAX package's ops/pallas/intersect_kernel.py. The host
 table functions are copied as they are, so both packages build identical tables:
@@ -15,18 +15,25 @@ table functions are copied as they are, so both packages build identical tables:
 
 `tri_closest_hit_tables` / `tri_any_hit_tables` take the ray batch and the
 tables. For tensors on the CPU they run the plain versions; for CUDA tensors
-they launch the CUDA kernels (and raise if those cannot run) — there is no
-fallback from the card to the plain code. `LAUNCHES` counts kernel launches
-per kernel, those of the sphere kernels (sphere_kernel.py), the group
-kernels (intersect_group.py) and the slab-grid probe
-(tools/probe_slab_grid.py) included.
+they launch the kernel `launch_plan` picks from block_t, and
+raise if it cannot run — there is no fallback from the card to the plain
+code: the warp-cooperative walk of csrc/intersect_warp.cu (the 32 lanes of
+a warp on one ray, lanes on a cluster's rows, live rays only), or, for
+tables of at most PER_THREAD_MAX_BLOCK_T rows a cluster (the Cornell
+scenes), the per-thread walk of csrc/intersect.cu, which the card runs
+faster there. `tri_closest_hit_warp` / `tri_closest_hit_thread`
+(and the any-hit pair) force one walk: the A/B of chip_smoke.py and the
+tools.
+`LAUNCHES` counts kernel launches per kernel, those of the sphere kernels
+(sphere_kernel.py), the group kernels (intersect_group.py) and the
+slab-grid probe (tools/probe_slab_grid.py) included.
 
 `stats=True` (K1b, the JAX kernel's roofline instrumentation) also returns
 per-ray (entered, improved) int32 counts: the cluster tiles each ray
 entered, and those that improved its best t. The JAX kernel counts per
-128/256-lane sub-group; each CUDA thread walks one ray, so the port counts
-per ray. The plain versions count the same (the any-hit one only entered
-tiles); no render path asks for them — they feed the bounds in PERF.md.
+128/256-lane sub-group; the port counts per ray. The plain versions count
+the same (the any-hit one only entered tiles); no render path asks for
+them — they feed the bounds in PERF.md.
 """
 
 from __future__ import annotations
@@ -52,10 +59,20 @@ SLAB_CLUSTERS = 256  # clusters per slab
 USE_SUPERS_MIN = 96  # enable the super-cluster level beyond this many clusters
 
 # Kernel launches per wrapper since the last reset (plain-version calls on
-# CPU tensors are not launches and are not counted).
+# CPU tensors are not launches and are not counted). tri_*: the warp walk;
+# tri_*_thread: the per-thread walk.
 LAUNCHES = {"tri_closest": 0, "tri_closest_stats": 0, "tri_any": 0,
+            "tri_closest_thread": 0, "tri_closest_stats_thread": 0, "tri_any_thread": 0,
             "sphere_closest": 0, "sphere_any": 0,
             "tri_closest_group": 0, "tri_any_group": 0, "slab_grid": 0}
+
+WARP = 32
+# Tables of up to this many rows a cluster keep the per-thread walk: on the
+# headline's Cornell tables (block_t 8; coherent rays, a handful of
+# clusters) the per-thread walk takes 0.87 ms per 4,194,304-ray call where
+# the warp walk, 24 of its 32 lanes idle, takes 2.9 ms (chip_smoke.py phase
+# 3, PERF.md).
+PER_THREAD_MAX_BLOCK_T = 8
 
 
 def reset_launches() -> None:
@@ -436,6 +453,8 @@ def _check(o, d, t_max, prims, caabb, saabb, slab_aabb, block, cps, use_supers):
         raise TypeError("traversal inputs must be float32")
     if any(x.device != o.device for x in tensors):
         raise ValueError("rays and tables must be on one device")
+    if block < 1:
+        raise ValueError(f"block_t must be at least 1, got {block}")
     nc = caabb.shape[0]
     if caabb.shape != (nc, 8) or nc % cps or slab_aabb.shape != (nc // cps, 8):
         raise ValueError(f"table shapes disagree: caabb {tuple(caabb.shape)}, "
@@ -448,17 +467,33 @@ def _check(o, d, t_max, prims, caabb, saabb, slab_aabb, block, cps, use_supers):
         raise ValueError(f"no traversal kernel for device {o.device}")
 
 
+def launch_plan(block_t: int) -> str:
+    """The walk tri_closest_hit_tables / tri_any_hit_tables launch for
+    tables of block_t rows a cluster: "thread" (csrc/intersect.cu) up to
+    PER_THREAD_MAX_BLOCK_T, "warp" (csrc/intersect_warp.cu) beyond."""
+    return "thread" if block_t <= PER_THREAD_MAX_BLOCK_T else "warp"
+
+
+def _aligned(x):
+    """x contiguous and 16-byte aligned (the kernels read rows and boxes as
+    16-byte vectors): a misaligned view is copied."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _launch(entry: str, counter: str, outs, o, d, t_max, prims, caabb, saabb, slab_aabb, block,
             cps, use_supers):
-    """Launch one entry point of csrc/intersect.cu on CUDA tensors: the C
-    arguments are the contiguous inputs, the table sizes, the error-bound
-    constants, the output pointers (None → NULL) and the current stream.
-    Raises on a refused launch; counts the launch."""
+    """Launch one entry point of csrc/*.cu on CUDA tensors: the C arguments
+    are the contiguous inputs, the table sizes, the error-bound constants,
+    the output pointers (None → NULL) and the current stream. Raises on a
+    refused launch; counts the launch."""
     from curry_pbrt_tpu_torch.ops.kernels.build import load_library
 
     if o.shape[0] == 0:
         return
-    keep = [x.contiguous() for x in (o, d, t_max, prims, caabb, saabb, slab_aabb)]
+    if o.shape[0] > 2**31 - 1 - WARP:
+        raise ValueError(f"the kernels index rays with 32-bit ints; got {o.shape[0]} rays")
+    keep = [_aligned(x) for x in (o, d, t_max, prims, caabb, saabb, slab_aabb)]
     args = [x.data_ptr() for x in keep]
     args += [o.shape[0], block, cps, slab_aabb.shape[0], int(bool(use_supers))]
     args += [float(_G2), float(_G3), float(_G5), float(_T_SCALE)]
@@ -481,6 +516,35 @@ def _closest_outputs(o, stats: bool):
     return outs
 
 
+def _closest(walk, o, d, t_max, tris16, caabb, saabb, slab_aabb, block_t, clusters_per_slab,
+             use_supers, stats):
+    args = (o, d, t_max, tris16, caabb, saabb, slab_aabb)
+    _check(*args, block_t, clusters_per_slab, use_supers)
+    if o.device.type == "cpu":
+        return tri_closest_hit_plain(*args, block_t=block_t, clusters_per_slab=clusters_per_slab,
+                                     use_supers=use_supers, stats=stats)
+    walk = walk or launch_plan(block_t)
+    outs = _closest_outputs(o, stats)
+    counter = ("tri_closest_stats" if stats else "tri_closest") + ("_thread" if walk == "thread" else "")
+    _launch("curry_tri_closest_hit_" + walk, counter, outs if stats else outs + [None, None],
+            *args, block_t, clusters_per_slab, use_supers)
+    return tuple(outs)
+
+
+def _any(walk, o, d, t_max, tris16, caabb, saabb, slab_aabb, block_t, clusters_per_slab,
+         use_supers):
+    args = (o, d, t_max, tris16, caabb, saabb, slab_aabb)
+    _check(*args, block_t, clusters_per_slab, use_supers)
+    if o.device.type == "cpu":
+        return tri_any_hit_plain(*args, block_t=block_t, clusters_per_slab=clusters_per_slab,
+                                 use_supers=use_supers)
+    walk = walk or launch_plan(block_t)
+    hit = torch.empty((o.shape[0],), dtype=torch.bool, device=o.device)
+    _launch("curry_tri_any_hit_" + walk, "tri_any_thread" if walk == "thread" else "tri_any",
+            [hit], *args, block_t, clusters_per_slab, use_supers)
+    return hit
+
+
 def tri_closest_hit_tables(o, d, t_max, tris16, caabb, saabb, slab_aabb, *,
                            block_t: int, clusters_per_slab: int, use_supers: bool,
                            stats: bool = False):
@@ -488,30 +552,51 @@ def tri_closest_hit_tables(o, d, t_max, tris16, caabb, saabb, slab_aabb, *,
     Returns (t: (N,) f32, FLOAT_MAX on miss; row: (N,) int32 table row, -1
     on miss); with stats=True also per-ray (entered, improved) int32 tile
     counts (the TPU kernel counts per lane sub-group; the port per ray).
-    CPU tensors → plain version; CUDA tensors → the CUDA kernel."""
-    args = (o, d, t_max, tris16, caabb, saabb, slab_aabb)
-    _check(*args, block_t, clusters_per_slab, use_supers)
-    if o.device.type == "cpu":
-        return tri_closest_hit_plain(*args, block_t=block_t, clusters_per_slab=clusters_per_slab,
-                                     use_supers=use_supers, stats=stats)
-    outs = _closest_outputs(o, stats)
-    _launch("curry_tri_closest_hit", "tri_closest_stats" if stats else "tri_closest",
-            outs if stats else outs + [None, None], *args, block_t, clusters_per_slab, use_supers)
-    return tuple(outs)
+    CPU tensors → plain version; CUDA tensors → the kernel launch_plan
+    picks from block_t (the warp walk, or the per-thread walk for
+    block_t <= PER_THREAD_MAX_BLOCK_T)."""
+    return _closest(None, o, d, t_max, tris16, caabb, saabb, slab_aabb, block_t,
+                    clusters_per_slab, use_supers, stats)
 
 
 def tri_any_hit_tables(o, d, t_max, tris16, caabb, saabb, slab_aabb, *,
                        block_t: int, clusters_per_slab: int, use_supers: bool):
     """Any-hit (shadow) test over TriTables tensors → (N,) bool. CPU tensors
-    → plain version; CUDA tensors → the CUDA kernel."""
-    args = (o, d, t_max, tris16, caabb, saabb, slab_aabb)
-    _check(*args, block_t, clusters_per_slab, use_supers)
-    if o.device.type == "cpu":
-        return tri_any_hit_plain(*args, block_t=block_t, clusters_per_slab=clusters_per_slab,
-                                 use_supers=use_supers)
-    hit = torch.empty((o.shape[0],), dtype=torch.bool, device=o.device)
-    _launch("curry_tri_any_hit", "tri_any", [hit], *args, block_t, clusters_per_slab, use_supers)
-    return hit
+    → plain version; CUDA tensors → the kernel launch_plan picks."""
+    return _any(None, o, d, t_max, tris16, caabb, saabb, slab_aabb, block_t, clusters_per_slab,
+                use_supers)
+
+
+def tri_closest_hit_warp(o, d, t_max, tris16, caabb, saabb, slab_aabb, *,
+                         block_t: int, clusters_per_slab: int, use_supers: bool,
+                         stats: bool = False):
+    """tri_closest_hit_tables through the warp walk whatever the plan: the
+    A/B at block_t <= 8."""
+    return _closest("warp", o, d, t_max, tris16, caabb, saabb, slab_aabb, block_t,
+                    clusters_per_slab, use_supers, stats)
+
+
+def tri_any_hit_warp(o, d, t_max, tris16, caabb, saabb, slab_aabb, *,
+                     block_t: int, clusters_per_slab: int, use_supers: bool):
+    """tri_any_hit_tables through the warp walk whatever the plan."""
+    return _any("warp", o, d, t_max, tris16, caabb, saabb, slab_aabb, block_t,
+                clusters_per_slab, use_supers)
+
+
+def tri_closest_hit_thread(o, d, t_max, tris16, caabb, saabb, slab_aabb, *,
+                           block_t: int, clusters_per_slab: int, use_supers: bool,
+                           stats: bool = False):
+    """tri_closest_hit_tables through the per-thread walk (csrc/intersect.cu,
+    one thread per ray) whatever the plan: the A/B baseline."""
+    return _closest("thread", o, d, t_max, tris16, caabb, saabb, slab_aabb, block_t,
+                    clusters_per_slab, use_supers, stats)
+
+
+def tri_any_hit_thread(o, d, t_max, tris16, caabb, saabb, slab_aabb, *,
+                       block_t: int, clusters_per_slab: int, use_supers: bool):
+    """tri_any_hit_tables through the per-thread walk whatever the plan."""
+    return _any("thread", o, d, t_max, tris16, caabb, saabb, slab_aabb, block_t,
+                clusters_per_slab, use_supers)
 
 
 class DeviceTables:
@@ -533,3 +618,24 @@ class DeviceTables:
     def any_hit(self, o, d, t_max):
         return tri_any_hit_tables(o, d, t_max, self.tris16, self.caabb, self.saabb,
                                   self.slab_aabb, **self.kw)
+
+    def closest_warp(self, o, d, t_max):
+        return tri_closest_hit_warp(o, d, t_max, self.tris16, self.caabb, self.saabb,
+                                    self.slab_aabb, **self.kw)
+
+    def any_hit_warp(self, o, d, t_max):
+        return tri_any_hit_warp(o, d, t_max, self.tris16, self.caabb, self.saabb,
+                                self.slab_aabb, **self.kw)
+
+    def closest_thread(self, o, d, t_max):
+        return tri_closest_hit_thread(o, d, t_max, self.tris16, self.caabb, self.saabb,
+                                      self.slab_aabb, **self.kw)
+
+    def any_hit_thread(self, o, d, t_max):
+        return tri_any_hit_thread(o, d, t_max, self.tris16, self.caabb, self.saabb,
+                                  self.slab_aabb, **self.kw)
+
+    @property
+    def plan(self) -> str:
+        """The walk launch_plan picks for these tables."""
+        return launch_plan(self.kw["block_t"])

@@ -1,18 +1,23 @@
-"""A/B of the per-ray kernels K1 / K2 against the group kernel K4 on the
-shared per-bounce workload.
+"""A/B of the per-ray kernels K1 / K2 against the group kernel K4, and of
+the launch plan's K1 / K2 walk against the per-thread walk, on the shared
+per-bounce workload.
 
     python -m curry_pbrt_tpu_torch.tools.probe_group_kernel [scenes ...] [--rays N] [--depth D] [--device cpu]
 
 Counterpart of the JAX package's tools/probe_group_kernel.py. K1 / K2 run
-on the render path's tables (aggregate.plan_tri_kernel); K4 on its own
-tables at block_t 128, clusters_per_slab 128, supers on (intersect_group.
+on the render path's tables (aggregate.plan_tri_kernel), through the walk
+intersect_kernel.launch_plan picks (the warp walk on the mesh scenes) and
+through the per-thread walk (csrc/intersect.cu); K4 on its own tables at
+block_t 128, clusters_per_slab 128, supers on (intersect_group.
 group_tables). Per bounce it reports:
-  - whether K4's t is bit-equal to K1's;
+  - whether K4's t, and the per-thread walk's, are bit-equal to K1's;
   - prim mismatches (the winning rows mapped through each table's prim),
-    and how many of them are not exact-t ties — those must be 0;
+    and how many of them are not exact-t ties — those must be 0 (for K4;
+    for the per-thread walk, rows on the same tables);
   - any-hit mismatches, on t_max shrunk to 0.999 of K1's closest t for hits
-    (a shadow-like bound), which must be 0;
-  - each kernel's time by CUDA events (closest K1 / K4, any K2 / K4).
+    (a shadow-like bound), of K4 and of the per-thread K2: they must be 0;
+  - each kernel's time by CUDA events (closest K1 / K4 / per-thread K1,
+    any K2 / K4 / per-thread K2; K1 and the per-thread walk in turns).
 On the CPU the kernels' plain versions run and no time is measured.
 """
 
@@ -31,7 +36,7 @@ from curry_pbrt_tpu_torch.ops.kernels.intersect_group import (
     tri_closest_hit_groups,
 )
 from curry_pbrt_tpu_torch.ops.kernels.intersect_kernel import DeviceTables
-from curry_pbrt_tpu_torch.tools.roofline import cuda_ms
+from curry_pbrt_tpu_torch.tools.roofline import cuda_ms, turns
 from curry_pbrt_tpu_torch.tools.workload import Workload, load_scene
 
 
@@ -93,26 +98,36 @@ def analyze(scene_name, n_rays: int, depth: int, device="cuda", seed: int = 0,
         t4, r4 = p.closest4(b.o, b.d, b.t_max)
         n_mis, n_bad = non_tie_mismatches(p.k1, p.prim1, b.row, p.k4, p.prim4, r4,
                                           b.o, b.d, b.t_max)
+        t1t, r1t = p.k1.closest_thread(b.o, b.d, b.t_max)
+        _, n_bad_t = non_tie_mismatches(p.k1, p.prim1, b.row, p.k1, p.prim1, r1t,
+                                        b.o, b.d, b.t_max)
         tm_s = torch.where(b.t < 1e29, b.t * 0.999, b.t_max)
         h2 = p.k1.any_hit(b.o, b.d, tm_s)
         h4 = p.any4(b.o, b.d, tm_s)
+        h2t = p.k1.any_hit_thread(b.o, b.d, tm_s)
         r = {"bounce": b.index, "active": b.active, "hits": int(b.hit.sum()),
              "t_bit_equal": bool(torch.equal(b.t, t4)),
              "t_mismatches": int((b.t != t4).sum()),
              "prim_mismatches": n_mis, "non_tie_prim_mismatches": n_bad,
              "any_mismatches": int((h2 != h4).sum()), "any_hits": int(h2.sum()),
-             "k1_ms": None, "k4_ms": None, "k2_ms": None, "k4_any_ms": None}
+             "thread_t_bit_equal": bool(torch.equal(b.t, t1t)),
+             "thread_non_tie_row_mismatches": n_bad_t,
+             "thread_any_mismatches": int((h2 != h2t).sum()),
+             "k1_ms": None, "k4_ms": None, "k2_ms": None, "k4_any_ms": None,
+             "k1_thread_ms": None, "k2_thread_ms": None}
         if on_card:
             o, d, tm = b.o, b.d, b.t_max
-            r["k1_ms"] = cuda_ms(lambda: p.k1.closest(o, d, tm), reps)
+            r["k1_thread_ms"], r["k1_ms"] = turns(lambda: p.k1.closest_thread(o, d, tm),
+                                                  lambda: p.k1.closest(o, d, tm), reps)
             r["k4_ms"] = cuda_ms(lambda: p.closest4(o, d, tm), reps)
-            r["k2_ms"] = cuda_ms(lambda: p.k1.any_hit(o, d, tm_s), reps)
+            r["k2_thread_ms"], r["k2_ms"] = turns(lambda: p.k1.any_hit_thread(o, d, tm_s),
+                                                  lambda: p.k1.any_hit(o, d, tm_s), reps)
             r["k4_any_ms"] = cuda_ms(lambda: p.any4(o, d, tm_s), reps)
         if b.index in keep:
             inputs[b.index] = (b.o, b.d, b.t_max, tm_s)
         rows.append(r)
     tot = {k: (sum(r[k] for r in rows) if on_card else None)
-           for k in ("k1_ms", "k4_ms", "k2_ms", "k4_any_ms")}
+           for k in ("k1_ms", "k4_ms", "k2_ms", "k4_any_ms", "k1_thread_ms", "k2_thread_ms")}
     return {"scene": str(scene_name), "device": str(wl.device), "rays": int(b.o.shape[0]),
             "depth": depth, "k1_tables": dict(p.k1.kw, clusters=int(p.k1.caabb.shape[0]),
                                               slabs=int(p.k1.slab_aabb.shape[0])),
@@ -122,12 +137,17 @@ def analyze(scene_name, n_rays: int, depth: int, device="cuda", seed: int = 0,
 
 
 def check(s: dict) -> None:
-    """Raise unless every bounce has t bit-equal, prims equal up to exact-t
-    ties, and any-hit equal."""
+    """Raise unless every bounce has t bit-equal, prims (rows) equal up to
+    exact-t ties, and any-hit equal: K4 and the per-thread walk against K1
+    / K2."""
     for r in s["bounces"]:
         if not r["t_bit_equal"] or r["non_tie_prim_mismatches"] or r["any_mismatches"]:
             raise AssertionError(f"{s['scene']} bounce {r['bounce']}: K4 disagrees with K1 / K2 "
                                  f"({r})")
+        if (not r["thread_t_bit_equal"] or r["thread_non_tie_row_mismatches"]
+                or r["thread_any_mismatches"]):
+            raise AssertionError(f"{s['scene']} bounce {r['bounce']}: the per-thread walk "
+                                 f"disagrees with K1 / K2 ({r})")
 
 
 def report(s: dict) -> str:
@@ -136,18 +156,21 @@ def report(s: dict) -> str:
              f"clusters of {k1['block_t']} in {k1['slabs']} slab(s); K4 tables {k4['clusters']} "
              f"clusters of {k4['block_t']} in {k4['slabs']} slab(s)"]
     for r in s["bounces"]:
-        line = (f"  bounce {r['bounce']}: active {r['active']:>8}, t bit-equal {r['t_bit_equal']}, "
-                f"prim mismatches {r['prim_mismatches']} ({r['non_tie_prim_mismatches']} not "
-                f"ties), any-hit mismatches {r['any_mismatches']}")
+        line = (f"  bounce {r['bounce']}: active {r['active']:>8}, t bit-equal {r['t_bit_equal']} "
+                f"(per-thread {r['thread_t_bit_equal']}), prim mismatches "
+                f"{r['prim_mismatches']} ({r['non_tie_prim_mismatches']} not ties; per-thread "
+                f"{r['thread_non_tie_row_mismatches']}), any-hit mismatches {r['any_mismatches']} "
+                f"(per-thread {r['thread_any_mismatches']})")
         if r["k1_ms"] is not None:
-            line += (f"; closest K1 {r['k1_ms']:.4f} ms, K4 {r['k4_ms']:.4f} ms "
-                     f"({r['k1_ms'] / r['k4_ms']:.2f}x); any K2 {r['k2_ms']:.4f} ms, K4 "
-                     f"{r['k4_any_ms']:.4f} ms ({r['k2_ms'] / r['k4_any_ms']:.2f}x)")
+            line += (f"; closest K1 {r['k1_ms']:.4f} ms (per-thread {r['k1_thread_ms']:.4f}), "
+                     f"K4 {r['k4_ms']:.4f} ms; any K2 {r['k2_ms']:.4f} ms (per-thread "
+                     f"{r['k2_thread_ms']:.4f}), K4 {r['k4_any_ms']:.4f} ms")
         lines.append(line)
     t = s["totals"]
     if t["k1_ms"] is not None:
-        lines.append(f"  totals: closest K1 {t['k1_ms']:.3f} ms, K4 {t['k4_ms']:.3f} ms; any K2 "
-                     f"{t['k2_ms']:.3f} ms, K4 {t['k4_any_ms']:.3f} ms")
+        lines.append(f"  totals: closest K1 {t['k1_ms']:.3f} ms (per-thread "
+                     f"{t['k1_thread_ms']:.3f}), K4 {t['k4_ms']:.3f} ms; any K2 {t['k2_ms']:.3f} "
+                     f"ms (per-thread {t['k2_thread_ms']:.3f}), K4 {t['k4_any_ms']:.3f} ms")
     return "\n".join(lines)
 
 

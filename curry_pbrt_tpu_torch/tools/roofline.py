@@ -19,9 +19,10 @@ multiply and add issues on its own, and that rate is half the data sheet's
 
 The bound (`bound`, also used by chip_smoke.py for every kernel) is the
 least time the card could take: the larger of the bytes the function must
-move (rays in, results out, tables once) over the memory rate and the
-operations its inputs need (each entered tile's rows and its box test)
-over the f32 rate, with the data sheet's rates of an H100 SXM at 700 W.
+move (live rays in, dead rays' t_max in, results out, tables once) over the
+memory rate and the operations its inputs need (each entered tile's rows
+and its box test) over the f32 rate, with the data sheet's rates of an
+H100 SXM at 700 W.
 
 On the CPU the tool runs the plain versions and reports counts only; every
 time, rate and share is "not measured" (None).
@@ -46,19 +47,23 @@ F32_OPS_PER_S = 67e12  # counts an FMA as two operations
 # div, sqrt, abs, min, max; comparisons and selects not counted)
 TRI_TEST_OPS, SPHERE_TEST_OPS, BOX_TEST_OPS = 84, 73, 25
 RAY_IN_BYTES = 28  # o, d (12 B each) and t_max (4 B)
+T_MAX_BYTES = 4  # all a dead ray (t_max 0) needs read: its result is fixed
 FP32_LANES_PER_SM = 128
 OUT = Path(__file__).resolve().parents[2] / "build" / "roofline" / "roofline.json"
 
 
-def bound(n_rays: int, out_bytes_per_ray: int, table_bytes: int, entered: int, block: int,
-          test_ops: int, in_bytes_per_ray: int = RAY_IN_BYTES):
-    """(bound ms, "bytes" or "operations"): each input byte read once and
-    each output byte written once; the operations these inputs need — every
-    entered tile's `block` rows at test_ops each, plus its box test (failed
-    box tests of clusters, supers and slabs are not counted, so this is a
-    lower bound)."""
-    return least_ms(n_rays * (in_bytes_per_ray + out_bytes_per_ray) + table_bytes,
-                    tile_ops(entered, block, test_ops))
+def bound(n_rays: int, live: int, out_bytes_per_ray: int, table_bytes: int, entered: int,
+          block: int, test_ops: int):
+    """(bound ms, "bytes" or "operations") of n_rays rays of which `live`
+    have t_max > 0: each input byte the function needs read once (a live
+    ray's o, d and t_max; a dead ray's t_max alone) and each output byte
+    written once; the operations these inputs need — every entered tile's
+    `block` rows at test_ops each, plus its box test (failed box tests of
+    clusters, supers and slabs are not counted, so this is a lower
+    bound)."""
+    n_bytes = (live * RAY_IN_BYTES + (n_rays - live) * T_MAX_BYTES
+               + n_rays * out_bytes_per_ray + table_bytes)
+    return least_ms(n_bytes, tile_ops(entered, block, test_ops))
 
 
 def least_ms(n_bytes: float, n_ops: float):
@@ -112,6 +117,14 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def turns(fa, fb, reps: int):
+    """(ms of fa, ms of fb), each the mean of two cuda_ms runs timed in
+    turns a, b, b, a: two versions compared inside one call, on one card."""
+    a1, b1 = cuda_ms(fa, reps), cuda_ms(fb, reps)
+    b2, a2 = cuda_ms(fb, reps), cuda_ms(fa, reps)
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
 def analyze(scene_name, n_rays: int, depth: int, device="cuda", seed: int = 0, reps: int = 5,
             peak=None, wl: Workload = None) -> dict:
     """The per-bounce roofline of K1 on one scene (or on a given Workload)
@@ -140,7 +153,8 @@ def analyze(scene_name, n_rays: int, depth: int, device="cuda", seed: int = 0, r
         if on_card:
             ms = cuda_ms(lambda: tri_closest_hit_tables(*args, **tb.kw), reps)
             rate = ops / (ms * 1e-3)
-            bms, by = bound(b.o.shape[0], 8, table_bytes(*args[3:]), ent, block, TRI_TEST_OPS)
+            bms, by = bound(b.o.shape[0], b.active, 8, table_bytes(*args[3:]), ent, block,
+                            TRI_TEST_OPS)
             row.update(ms=ms, achieved_ops_per_s=rate, peak_pct=100.0 * rate / peak["ops_per_s"],
                        datasheet_pct=100.0 * rate / F32_OPS_PER_S, bound_ms=bms, bound_by=by)
             tot_ops += ops
