@@ -24,12 +24,18 @@ non-zero and no result line is printed:
                in turns (the launch plan keeps the per-thread walk at
                block_t 8, and the line says whether it still measures
                faster there);
-  3b. spheres— the sphere kernels (K3, closest and any hit) against their
-               plain versions: the spherefield10k tables and a soup of
-               rotated, anisotropically scaled spheres (supers, several
-               slabs, a NaN padding cluster), 32k and 1M rays with dead
-               lanes plus the sphere field's chunk shape; masks and any-hit
-               equal, t bit-equal, spheres equal up to exact-t ties;
+  3b. spheres— the sphere kernels (K3, closest and any hit) through both
+               walks — the warp walk (csrc/intersect_warp.cu), which the
+               launch plan picks for the 64-row sphere tables, and the
+               per-thread walk (csrc/intersect.cu) — against their plain
+               versions and each other: the spherefield10k tables and a
+               soup of rotated, anisotropically scaled spheres (supers,
+               several slabs, a NaN padding cluster), 32k and 1M rays with
+               dead lanes plus the sphere field's chunk shape, a t_max-tie
+               batch on each, ~90% dead lanes at the chunk shape, and rays
+               that start on a sphere's surface (hits at t = -0.0); masks
+               and any-hit equal, t bit-equal (sign bit included), spheres
+               equal up to exact-t ties; both walks' ms in turns;
   3c. stats  — K1 with stats=True, both walks, against the plain version's
                stats on the triangle soup and the mesh100k tables: per-ray
                (entered, improved) counts equal, (t, row) unchanged by stats;
@@ -49,17 +55,21 @@ non-zero and no result line is printed:
                (its seconds printed on their own line: set-up, not render
                time), a warm-up pass, then one timed pass with its wall,
                seg/s and launches; segments within 1e-4 and the image sum
-               within 1e-3 relative of the JAX anchors; K3 must launch on
-               the sphere field, the ray sort must run on mesh100k and
-               mesh600k, the plan's K1 / K2 walk alone (the warp walk on the
-               meshes), and no plain version may run on the card;
+               within 1e-3 relative of the JAX anchors; the sphere field
+               must launch the plan's K3 walk alone (the warp walk; the
+               other walk's counters at 0), the ray sort must run on
+               mesh100k and mesh600k, the plan's K1 / K2 walk alone (the
+               warp walk on the meshes), and no plain version may run on
+               the card;
   7. bounds  — the kernels at the paths' own shapes, on rays captured from
-               the warm-up passes of phase 6 (a sphere-field bounce, and a
-               mesh10k and a mesh100k bounce 2 with its shadow rays; each
-               shape's live lanes printed): both walks' and the plain ms, and
-               the least time the card could take (bytes or operations, from
-               the live lanes and the entered-tile counts of K1's stats and
-               of the plain versions);
+               the warm-up passes of phase 6 (every K3 launch of one
+               sphere-field pass: 7 closest and 3 any hit, 262,144 rays
+               each; a mesh10k and a mesh100k bounce 2 with its shadow rays;
+               each shape's live lanes printed): both walks' and the plain
+               ms, and the least time the card could take (bytes or
+               operations, from the live lanes and the entered-tile counts
+               of K1's stats and of the plain versions); K3's per-pass sum
+               for each walk;
   8. probes  — the traversal-analysis path (curry_pbrt_tpu_torch/tools/):
                the group kernel K4 (closest and any hit) against its plain
                version and against K1 / K2 on the phase-3 soup at 32k rays
@@ -184,6 +194,33 @@ def sphere_soup_tables(n: int, seed: int):
     w2o = np.linalg.inv(o2w).astype(np.float32)
     return build_sphere_tables(w2o, o2w, radii, np.arange(n, dtype=np.int32),
                                view_origin=np.zeros(3), clusters_per_slab=16, use_supers=True)
+
+
+def on_surface(n: int, seed: int, device, n_small: int = 69):
+    """A unit sphere at the origin among n_small small spheres, and n rays
+    that start exactly on its surface — at (±1, 0, 0), (0, ±1, 0) and
+    (0, 0, ±1), in random directions, every 7th lane dead — so every live
+    ray hits it at t = ±0, at -0.0 where it leaves the sphere (c = +0 over
+    q < 0). → (SphereTables, (o, d, t_max))."""
+    import numpy as np
+    import torch
+
+    from curry_pbrt_tpu_torch.dtypes import FLOAT_MAX
+    from curry_pbrt_tpu_torch.ops.kernels.sphere_kernel import build_sphere_tables
+
+    rng = np.random.default_rng(seed)
+    o2w = np.tile(np.eye(4, dtype=np.float32), (n_small + 1, 1, 1))
+    o2w[1:, :3, 3] = rng.uniform(-3, 3, (n_small, 3))
+    radius = np.concatenate([[1.0], rng.uniform(0.1, 0.3, n_small)]).astype(np.float32)
+    tables = build_sphere_tables(np.linalg.inv(o2w).astype(np.float32), o2w, radius,
+                                 np.arange(n_small + 1, dtype=np.int32), view_origin=np.zeros(3))
+    axes = np.concatenate([np.eye(3), -np.eye(3)]).astype(np.float32)
+    o = axes[rng.integers(0, 6, n)]
+    d = rng.normal(0, 1, (n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t_max = np.full((n,), FLOAT_MAX, np.float32)
+    t_max[::7] = 0.0
+    return tables, tuple(torch.from_numpy(a).to(device) for a in (o, d, t_max))
 
 
 def make_rays(n: int, seed: int, center, spread: float, device):
@@ -320,52 +357,82 @@ def mostly_dead(rays, seed: int, live: float = 0.1):
     return o, d, torch.where(keep, t_max, 0.0)
 
 
-def check_sphere_kernels(name, tables, rays, S, plain, reps=(20, 3)):
-    """K3 (closest and any hit) vs plain on one sphere table set and ray
-    batch; returns errors, timings, and the plain versions' entered-tile
-    sums (the bound's input)."""
+def hold_sphere_closest(name, tables, rays, t_k, r_k, t_ref, r_ref, what):
+    """K3's (t, row) against a reference's: hit masks equal, t bit-equal
+    with its sign bit (a ray that starts on a sphere and leaves it hits at
+    -0.0), spheres equal up to exact-t ties, no hit on a dead lane. Returns
+    the tie spheres."""
+    import torch
+
+    o, d, t_max = rays
+    hit_k, hit_r = r_k >= 0, r_ref >= 0
+    if not torch.equal(hit_k, hit_r):
+        raise AssertionError(f"{name}: {what} hit masks differ on "
+                             f"{(hit_k != hit_r).sum().item()} rays")
+    if not torch.equal(t_k.view(torch.int32), t_ref.view(torch.int32)):
+        raise AssertionError(f"{name}: {what} t not bit-equal on "
+                             f"{(t_k.view(torch.int32) != t_ref.view(torch.int32)).sum().item()} rays")
+    diff = (r_k != r_ref) & (tables.row_sphere[r_k.clamp(min=0).long()]
+                             != tables.row_sphere[r_ref.clamp(min=0).long()])
+    if diff.any():  # different spheres only where both give the same t (a tie)
+        tk = sphere_row_t(tables, o[diff], d[diff], t_max[diff], r_k[diff])
+        tp = sphere_row_t(tables, o[diff], d[diff], t_max[diff], r_ref[diff])
+        if not (torch.equal(tk, tp) and torch.equal(tk, t_k[diff])):
+            raise AssertionError(f"{name}: {what} spheres differ beyond exact-t ties")
+    if hit_k[t_max == 0].any():
+        raise AssertionError(f"{name}: a dead lane (t_max 0) reported a sphere hit ({what})")
+    return int(diff.sum())
+
+
+def check_sphere_kernels(name, tables, rays, S, plain, reps=(20, 3), timed=("closest", "any")):
+    """K3 (closest and any hit) through both walks — the warp walk
+    (csrc/intersect_warp.cu) and the per-thread walk (csrc/intersect.cu) —
+    against the plain versions and each other on one sphere table set and
+    ray batch; returns errors, the -0.0 hits, the plain versions'
+    entered-tile sums (the bound's input) and, with reps, the `timed`
+    kernels' ms: both walks in turns, and the plain version's."""
     import torch
 
     o, d, t_max = rays
     n = o.shape[0]
     args = (o, d, t_max, tables.sph16, tables.caabb, tables.saabb, tables.slab_aabb)
     kw = tables.kw
-    t_k, r_k = S.sphere_closest_hit_tables(*args, **kw)
-    h_k = S.sphere_any_hit_tables(*args, **kw)
+    t_w, r_w = S.sphere_closest_hit_warp(*args, **kw)
+    h_w = S.sphere_any_hit_warp(*args, **kw)
+    t_t, r_t = S.sphere_closest_hit_thread(*args, **kw)
+    h_t = S.sphere_any_hit_thread(*args, **kw)
     torch.cuda.synchronize()
     t_p, r_p, entered, _ = plain["sphere_closest"](*args, **kw, stats=True)
     h_p, any_entered = plain["sphere_any"](*args, **kw, stats=True)
-    hit_k, hit_p = r_k >= 0, r_p >= 0
-    if not torch.equal(hit_k, hit_p):
-        raise AssertionError(f"{name}: K3 hit masks differ on {(hit_k != hit_p).sum().item()} rays")
-    if not torch.equal(h_k, h_p):
-        raise AssertionError(f"{name}: K3 any-hit differs on {(h_k != h_p).sum().item()} rays")
-    if not torch.equal(t_k, t_p):
-        raise AssertionError(f"{name}: K3 t not bit-equal on {(t_k != t_p).sum().item()} rays")
-    diff = (r_k != r_p) & (tables.row_sphere[r_k.clamp(min=0).long()]
-                           != tables.row_sphere[r_p.clamp(min=0).long()])
-    if diff.any():  # different spheres only where both give the same t (a tie)
-        tk = sphere_row_t(tables, o[diff], d[diff], t_max[diff], r_k[diff])
-        tp = sphere_row_t(tables, o[diff], d[diff], t_max[diff], r_p[diff])
-        if not (torch.equal(tk, tp) and torch.equal(tk, t_k[diff])):
-            raise AssertionError(f"{name}: K3 spheres differ beyond exact-t ties")
-    dead = t_max == 0
-    if hit_k[dead].any() or h_k[dead].any():
-        raise AssertionError(f"{name}: a dead lane (t_max 0) reported a sphere hit")
-    log(f"  {name}: {n} rays ({int((t_max > 0).sum())} live), {int(hit_k.sum())} closest hits, "
-        f"{int(h_k.sum())} any hits, {int(diff.sum())} tie spheres — masks equal, t bit-equal, "
-        f"spheres equal up to ties")
-    out = {"max_abs_err": (t_k[hit_k] - t_p[hit_k]).abs().max().item() if hit_k.any() else 0.0,
-           "any_max_abs_err": (h_k.float() - h_p.float()).abs().max().item() if n else 0.0,
+    ties = hold_sphere_closest(name, tables, rays, t_w, r_w, t_p, r_p, "warp K3 vs plain")
+    hold_sphere_closest(name, tables, rays, t_t, r_t, t_p, r_p, "per-thread K3 vs plain")
+    hold_sphere_closest(name, tables, rays, t_w, r_w, t_t, r_t, "warp K3 vs per-thread K3")
+    hold_any(name, h_w, h_p, t_max, "warp K3 any-hit vs plain")
+    hold_any(name, h_t, h_p, t_max, "per-thread K3 any-hit vs plain")
+    hit = r_w >= 0
+    neg_zero = int((hit & (t_w == 0) & torch.signbit(t_w)).sum())
+    log(f"  {name}: {n} rays ({int((t_max > 0).sum())} live), {int(hit.sum())} closest hits "
+        f"({neg_zero} at -0.0), {int(h_w.sum())} any hits, {ties} tie spheres — warp and "
+        f"per-thread walks: masks equal, t bit-equal (sign included) to the plain version and to "
+        f"each other, spheres equal up to ties, any-hit equal")
+    err = lambda t: (t[hit] - t_p[hit]).abs().max().item() if hit.any() else 0.0  # noqa: E731
+    any_err = lambda h: (h.float() - h_p.float()).abs().max().item() if n else 0.0  # noqa: E731
+    out = {"max_abs_err": err(t_w), "thread_max_abs_err": err(t_t),
+           "any_max_abs_err": any_err(h_w), "any_thread_max_abs_err": any_err(h_t),
            "entered": int(entered.sum()), "any_entered": int(any_entered.sum()), "n": n,
-           "live": int((t_max > 0).sum()), "table_bytes": table_bytes(*args[3:])}
+           "live": int((t_max > 0).sum()), "neg_zero": neg_zero,
+           "table_bytes": table_bytes(*args[3:])}
     if reps:
-        out["closest_ms"] = cuda_ms(lambda: S.sphere_closest_hit_tables(*args, **kw), reps[0])
-        out["any_ms"] = cuda_ms(lambda: S.sphere_any_hit_tables(*args, **kw), reps[0])
-        out["closest_plain_ms"] = cuda_ms(lambda: plain["sphere_closest"](*args, **kw), reps[1])
-        out["any_plain_ms"] = cuda_ms(lambda: plain["sphere_any"](*args, **kw), reps[1])
-        log(f"    K3 closest {out['closest_ms']:.4f} ms (plain {out['closest_plain_ms']:.3f} ms), "
-            f"any {out['any_ms']:.4f} ms (plain {out['any_plain_ms']:.3f} ms)")
+        fns = {"closest": (S.sphere_closest_hit_thread, S.sphere_closest_hit_warp,
+                           plain["sphere_closest"]),
+               "any": (S.sphere_any_hit_thread, S.sphere_any_hit_warp, plain["sphere_any"])}
+        for kind in timed:
+            thread, warp, pl = fns[kind]
+            out[kind + "_thread_ms"], out[kind + "_ms"] = turns(
+                lambda: thread(*args, **kw), lambda: warp(*args, **kw), reps[0])
+            out[kind + "_plain_ms"] = cuda_ms(lambda: pl(*args, **kw), reps[1])
+            log(f"    K3 {kind} warp {out[kind + '_ms']:.4f} ms, per-thread "
+                f"{out[kind + '_thread_ms']:.4f} (plain {out[kind + '_plain_ms']:.3f})")
     return out
 
 
@@ -612,6 +679,7 @@ def main() -> int:
         f"supers {qtab_host.use_supers}, "
         f"{int(np.isnan(qtab_host.cluster_aabbs[:, 0]).sum())} NaN padding clusters "
         f"(compile + tables {time.time() - t0:.1f} s)")
+    log(f"[spheres] launch plan: spherefield10k the {ftab.plan} walk, soup the {qtab.plan} walk")
     field_res, field_spp = CONFIGS["spherefield10k_256"][1:3]
     field_chunk = field_res * field_res * field_spp
     sph_timings = {}
@@ -621,6 +689,24 @@ def main() -> int:
             plain)
         sph_timings[("soup", n)] = check_sphere_kernels(
             f"sphere soup/{n}", qtab, make_rays(n, 40 + n % 79, (0, 0, 0), 14.0, dev), S, plain)
+    # t_max at each ray's exact hit t, ~90% dead lanes at the chunk shape,
+    # and rays that start on a sphere's surface (hits at -0.0)
+    for sname, tab, spread in (("spherefield10k", ftab, 45.0), ("sphere soup", qtab, 14.0)):
+        rays = make_rays(1 << 15, 80, (0, 0, 0), spread, dev)
+        t_p, _ = plain["sphere_closest"](*rays, tab.sph16, tab.caabb, tab.saabb, tab.slab_aabb,
+                                         **tab.kw)
+        check_sphere_kernels(f"{sname}/32768 t_max = hit t", tab,
+                             (rays[0], rays[1], torch.where(t_p < 1e30, t_p, rays[2])), S, plain,
+                             reps=None)
+    sph_timings[("field 90% dead", field_chunk)] = check_sphere_kernels(
+        f"spherefield10k/{field_chunk} 90% dead", ftab,
+        mostly_dead(make_rays(field_chunk, 81, (0, 0, 0), 45.0, dev), 82), S, plain)
+    otab_host, orays = on_surface(1 << 15, 83, dev)
+    surf = check_sphere_kernels("on-surface/32768", S.DeviceSphereTables(otab_host, dev), orays,
+                                S, plain, reps=None)
+    if surf["neg_zero"] < 1000:
+        raise AssertionError(f"the on-surface batch gave {surf['neg_zero']} hits at -0.0: it "
+                             f"does not test the sign of t")
 
     # ---- 3c. K1 stats against the plain stats
     phases.start("3c stats")
@@ -723,16 +809,16 @@ def main() -> int:
 
     # ---- 6. the sphere-field and mesh configs
     phases.start("6 configs")
-    # capture: the inputs of one traversal of each warm-up pass (a bounce,
-    # not the camera rays) for phase 7
+    # capture: the inputs of the warm-up passes' traversals for phase 7 —
+    # (config, kernel, call number) → (o, d, t_max)
     captured = {}
     capture = {}
 
     def capturing(fn, key):
         def wrapped(o, d, t_max, *a, **kw):
-            capture["calls"][key] = capture["calls"].get(key, 0) + 1
-            if capture["calls"][key] == capture.get(key):
-                captured[(capture["config"], key)] = (o.clone(), d.clone(), t_max.clone())
+            call = capture["calls"][key] = capture["calls"].get(key, 0) + 1
+            if capture.get(key) in (call, "all"):
+                captured[(capture["config"], key, call)] = (o.clone(), d.clone(), t_max.clone())
             return fn(o, d, t_max, *a, **kw)
         return wrapped
 
@@ -740,10 +826,11 @@ def main() -> int:
     K.tri_any_hit_tables = capturing(K.tri_any_hit_tables, "tri_any")
     S.sphere_closest_hit_tables = capturing(S.sphere_closest_hit_tables, "sphere_closest")
     S.sphere_any_hit_tables = capturing(S.sphere_any_hit_tables, "sphere_any")
-    # closest-hit calls per bounce: the hit, then the MIS leg's (t, prim);
-    # so call 3 is bounce 1's hit (2 for the any-hit shadow rays), and call
-    # 5 bounce 2's (3 for its shadow rays)
-    capture_at = {"spherefield10k_256": {"sphere_closest": 3, "sphere_any": 2},
+    # closest-hit calls per bounce: the hit, then the MIS leg's (t, prim),
+    # and after the last bounce the final hit; so call 3 is bounce 1's hit
+    # (2 for the any-hit shadow rays), and call 5 bounce 2's (3 for its
+    # shadow rays). The sphere field: every K3 call of the pass.
+    capture_at = {"spherefield10k_256": {"sphere_closest": "all", "sphere_any": "all"},
                   "mesh10k_512": {"tri_closest": 5, "tri_any": 3},
                   "mesh100k_512": {"tri_closest": 5, "tri_any": 3}}
     config_runs = {}
@@ -794,29 +881,72 @@ def main() -> int:
         walk = "thread" if sc.tris.count <= AG.SMALL_SCENE_TRIS else "warp"
         if not ran_alone(launches, walk):
             raise AssertionError(f"{name} did not run through the {walk} walk's K1 / K2 alone")
-        if name.startswith("sphere") and min(launches["sphere_closest"],
-                                             launches["sphere_any"]) <= 0:
-            raise AssertionError(f"{name} did not launch K3")
+        if name.startswith("sphere"):  # the plan's K3 walk alone
+            need, off = (("sphere_closest" + x, "sphere_any" + x)
+                         for x in {"warp": ("", "_thread"), "thread": ("_thread", "")}[ftab.plan])
+            if min(launches[k] for k in need) <= 0 or any(launches[k] for k in off):
+                raise AssertionError(f"{name} did not run through the {ftab.plan} walk's K3 "
+                                     f"alone: {launches}")
         if name in ("mesh100k_512", "mesh600k_256") and sorts <= 0:
             raise AssertionError(f"{name}: the ray sort did not run")
         del plan
 
     # ---- 7. the kernels at the paths' own shapes, and their bounds
     phases.start("7 bounds")
-    K.reset_launches()  # the stats kernel's path: this phase
-    f_cl = check_sphere_kernels("spherefield10k bounce 1 (closest)", ftab,
-                                captured[("spherefield10k_256", "sphere_closest")], S, plain)
-    f_any = check_sphere_kernels("spherefield10k bounce 1 (shadow)", ftab,
-                                 captured[("spherefield10k_256", "sphere_any")], S, plain)
+    K.reset_launches()  # the stats kernel's and the per-thread K3's path: this phase
+    # every K3 launch of one sphere-field pass, in launch order: closest
+    # calls 1 to 2·depth + 1 (bounce b's hit is call 2b + 1, its MIS leg
+    # 2b + 2, the last call the final hit) and any-hit calls 1 to depth
+    # (bounce b's shadow rays, b + 1)
+    def k3_call(kind, call):
+        if kind == "any":
+            return f"bounce {call - 1} shadow rays"
+        b, mis = divmod(call - 1, 2)
+        return {1: "bounce 0 hit: camera rays", 2 * field_depth + 1: "final hit"}.get(
+            call, f"bounce {b} {'MIS leg' if mis else 'hit'}")
+
+    field_depth = CONFIGS["spherefield10k_256"][3]
+
+    k3_pass = {}
+    for kind, out_b, ent in (("closest", 8, "entered"), ("any", 1, "any_entered")):
+        calls = sorted(c for cfg, key, c in captured
+                       if cfg == "spherefield10k_256" and key == "sphere_" + kind)
+        if len(calls) != config_runs["spherefield10k_256"]["launches"]["sphere_" + kind]:
+            raise AssertionError(f"phase 7 holds {len(calls)} K3 {kind} calls of the sphere "
+                                 f"field's pass, which launched a different number")
+        for call in calls:
+            what = k3_call(kind, call)
+            st = check_sphere_kernels(
+                f"spherefield10k {kind} call {call} ({what})", ftab,
+                captured[("spherefield10k_256", "sphere_" + kind, call)], S, plain,
+                reps=(10, 1), timed=(kind,))
+            st["bound"] = bound(st["n"], st["live"], out_b, st["table_bytes"], st[ent],
+                                ftab.kw["block_s"], SPHERE_TEST_OPS)
+            k3_pass[(kind, call)] = st
+            log(f"[bounds] K3 {kind} at the sphere field's call {call} ({what}; {st['n']} rays, "
+                f"{st['live']} live) on {card}: warp {st[kind + '_ms']:.4f} ms, per-thread "
+                f"{st[kind + '_thread_ms']:.4f} ms (plain {st[kind + '_plain_ms']:.3f}), bound "
+                f"{st['bound'][0]:.4f} ms ({st['bound'][1]}; {st[ent]} entered tiles)")
+    k3_sum = {w: sum(st[k + sfx + "_ms"] for (k, _), st in k3_pass.items())
+              for w, sfx in (("warp", ""), ("thread", "_thread"), ("plain", "_plain"))}
+    k3_sum["bound"] = sum(st["bound"][0] for st in k3_pass.values())
+    faster = "warp" if k3_sum["warp"] < k3_sum["thread"] else "thread"
+    log(f"[bounds] K3 per sphere-field pass ({len(k3_pass)} launches) on "
+        f"{card}: warp {k3_sum['warp']:.4f} ms, per-thread {k3_sum['thread']:.4f} ms, plain "
+        f"{k3_sum['plain']:.2f} ms, bound {k3_sum['bound']:.4f} ms — the plan's walk "
+        f"({ftab.plan}) "
+        f"{'has the lower sum, as the plan assumes' if faster == ftab.plan else 'does NOT have the lower sum: revisit the plan'}")
+    k3_thread_launches = (K.LAUNCHES["sphere_closest_thread"], K.LAUNCHES["sphere_any_thread"])
+    f_cl, f_any = k3_pass[("closest", 3)], k3_pass[("any", 2)]  # bounce 1
     mesh_rows, mesh_any = {}, {}
     for name in ("mesh10k_512", "mesh100k_512"):
         sc = config_scene(name)
         tab = mtab if name == "mesh100k_512" else K.DeviceTables(
             plan_tri_kernel(sc.tris, np.asarray(sc.camera.camera_to_world)[:3, 3]), dev)
-        mesh_rows[name] = check_stats(f"{name} bounce 2", tab, captured[(name, "tri_closest")],
-                                      K, plain, reps=(5, 1))
+        mesh_rows[name] = check_stats(f"{name} bounce 2", tab,
+                                      captured[(name, "tri_closest", 5)], K, plain, reps=(5, 1))
         mesh_any[name] = check_any(f"{name} bounce-2 shadow rays", tab,
-                                   captured[(name, "tri_any")], K, plain, reps=(5, 1))
+                                   captured[(name, "tri_any", 3)], K, plain, reps=(5, 1))
     stats_launches = K.LAUNCHES["tri_closest_stats"]
     stats_thread_launches = K.LAUNCHES["tri_closest_stats_thread"]
 
@@ -832,10 +962,7 @@ def main() -> int:
     head_shape = timings[("cornell", chunk)]
     k1_b = k1_bound(head_stats)
     k2_b = k2_bound(dict(head_stats, any_entered=head_any_entered))
-    k3c_b = bound(f_cl["n"], f_cl["live"], 8, f_cl["table_bytes"], f_cl["entered"],
-                  ftab.kw["block_s"], SPHERE_TEST_OPS)
-    k3a_b = bound(f_any["n"], f_any["live"], 1, f_any["table_bytes"], f_any["any_entered"],
-                  ftab.kw["block_s"], SPHERE_TEST_OPS)
+    k3c_b, k3a_b = f_cl["bound"], f_any["bound"]
     st100, any100 = mesh_rows["mesh100k_512"], mesh_any["mesh100k_512"]
     k1_100_b = k1_bound(st100)
     k2_100_b = k2_bound(any100)
@@ -846,11 +973,6 @@ def main() -> int:
         f"{head_stats['entered']} entered tiles); K2 per-thread {head_shape['any_thread_ms']:.4f} "
         f"ms, warp {head_shape['any_ms']:.4f} ms, bound {k2_b[0]:.4f} ms ({k2_b[1]}; "
         f"{head_any_entered} entered tiles)")
-    log(f"[bounds] K3 at the sphere field's bounce ({f_cl['n']} rays): closest "
-        f"{f_cl['closest_ms']:.4f} ms (plain {f_cl['closest_plain_ms']:.3f}), bound "
-        f"{k3c_b[0]:.4f} ms ({k3c_b[1]}; {f_cl['entered']} entered tiles); any "
-        f"{f_any['any_ms']:.4f} ms (plain {f_any['any_plain_ms']:.3f}), bound {k3a_b[0]:.4f} ms "
-        f"({k3a_b[1]}; {f_any['any_entered']} entered tiles)")
     for name, st in mesh_rows.items():
         b = k1_bound(st)
         log(f"[bounds] K1 at {name}'s bounce-2 shape ({st['n']} rays, {st['live']} live): warp "
@@ -870,8 +992,9 @@ def main() -> int:
             f"{tm['any_ms']:.4f} ms, per-thread {tm['any_thread_ms']:.4f} (plain "
             f"{tm['any_plain_ms']:.4f})")
     for (tab, n), tm in sorted(sph_timings.items()):
-        log(f"[spheres] {tab}/{n} rays on {card}: K3 closest {tm['closest_ms']:.4f} ms (plain "
-            f"{tm['closest_plain_ms']:.4f}), any {tm['any_ms']:.4f} ms (plain "
+        log(f"[spheres] {tab}/{n} rays on {card}: K3 closest warp {tm['closest_ms']:.4f} ms, "
+            f"per-thread {tm['closest_thread_ms']:.4f} (plain {tm['closest_plain_ms']:.4f}); any "
+            f"warp {tm['any_ms']:.4f} ms, per-thread {tm['any_thread_ms']:.4f} (plain "
             f"{tm['any_plain_ms']:.4f})")
 
     # ---- 8. the traversal-analysis path: K4, the A/B, the roofline, the
@@ -998,10 +1121,18 @@ def main() -> int:
         entry("tri_closest_hit_stats_thread", f"{tri_k}:712", stats_thread_launches,
               st100["stats_thread_max_abs_err"], st100["stats_thread_ms"],
               st100["stats_plain_ms"], k1s_b),
+        # K3: both walks at the sphere field's bounce-1 shapes; the warp
+        # walk's launches per pass, the per-thread walk's in phase 7's A/B
         entry("sphere_closest_hit", f"{sph_k}:216", field_l["sphere_closest"],
-              f_cl["max_abs_err"], f_cl["closest_ms"], f_cl["closest_plain_ms"], k3c_b),
+              f_cl["max_abs_err"], f_cl["closest_ms"], f_cl["closest_plain_ms"], k3c_b, wsrc),
         entry("sphere_any_hit", f"{sph_k}:256", field_l["sphere_any"], f_any["any_max_abs_err"],
-              f_any["any_ms"], f_any["any_plain_ms"], k3a_b),
+              f_any["any_ms"], f_any["any_plain_ms"], k3a_b, wsrc),
+        entry("sphere_closest_hit_thread", f"{sph_k}:216", k3_thread_launches[0],
+              f_cl["thread_max_abs_err"], f_cl["closest_thread_ms"], f_cl["closest_plain_ms"],
+              k3c_b),
+        entry("sphere_any_hit_thread", f"{sph_k}:256", k3_thread_launches[1],
+              f_any["any_thread_max_abs_err"], f_any["any_thread_ms"], f_any["any_plain_ms"],
+              k3a_b),
         entry("tri_closest_hit_groups", f"{grp_k}:345", ab_launches["tri_closest_group"],
               k4_10["max_abs_err"], r2["k4_ms"], k4_10["plain_ms"], k4c_b, grp_src),
         entry("tri_any_hit_groups", f"{grp_k}:382", ab_launches["tri_any_group"],

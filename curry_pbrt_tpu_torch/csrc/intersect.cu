@@ -38,10 +38,12 @@
 // at thread granularity: one thread per ray, each with its own best t, so a
 // ray never tests a cluster that only its neighbours enter.
 //
-// The triangle instantiations (curry_tri_*_thread) are the A/B baseline of
-// the warp-cooperative K1/K2 of intersect_warp.cu, which the render path
-// launches: only chip_smoke.py and the tools call them. The sphere
-// instantiations are K3's kernels.
+// Its instantiations (curry_tri_*_thread, curry_sphere_*_thread) are the
+// A/B baseline of the warp-cooperative walk of intersect_warp.cu. The launch
+// plan (ops/kernels/intersect_kernel.py) keeps them for tables of 8 rows a
+// cluster (the Cornell scenes), where they measured faster on the card; the
+// 64-row sphere tables and the mesh tables take the warp walk, and only
+// chip_smoke.py and the tools call this walk on them.
 //
 // Built by ops/kernels/build.py with nvcc -fmad=false (no fast math, IEEE
 // division and square root); the plain PyTorch versions beside the wrappers
@@ -212,12 +214,12 @@ extern "C" int curry_tri_any_hit_thread(CURRY_TABLE_ARGS, void* hit_out, void* s
     return curry::launch_any<curry::TriPrim>(o, d, t_max, CURRY_TABLES, n, hit_out, stream);
 }
 
-extern "C" int curry_sphere_closest_hit(CURRY_TABLE_ARGS, void* t_out, void* row_out,
-                                        void* stream) {
+extern "C" int curry_sphere_closest_hit_thread(CURRY_TABLE_ARGS, void* t_out, void* row_out,
+                                               void* stream) {
     return curry::launch_closest<curry::SpherePrim, false>(o, d, t_max, CURRY_TABLES, n, t_out,
                                                            row_out, nullptr, nullptr, stream);
 }
 
-extern "C" int curry_sphere_any_hit(CURRY_TABLE_ARGS, void* hit_out, void* stream) {
+extern "C" int curry_sphere_any_hit_thread(CURRY_TABLE_ARGS, void* hit_out, void* stream) {
     return curry::launch_any<curry::SpherePrim>(o, d, t_max, CURRY_TABLES, n, hit_out, stream);
 }

@@ -219,17 +219,93 @@ __device__ __forceinline__ float sphere_test(const float* s, const Ray& r, float
     return ok ? t : FLT_MAX;
 }
 
-// The primitive tests as types, so one templated walk serves both.
+// The primitive tests as types, so one templated walk serves both. test() is
+// the per-thread walk's (intersect.cu: each row read where it lies). The
+// warp walk (intersect_warp.cu), whose lanes share one ray, uses the rest:
+//   COLS, load(): the used columns of one 64-byte-aligned row, as 16- and
+//     8-byte loads, into registers;
+//   BY_AXIS, test_kz<KZ>(): the test on loaded columns; with BY_AXIS the
+//     walk makes the ray's dominant axis a compile-time constant KZ (r.kz is
+//     the same on every lane, so dispatching on it does not diverge);
+//   shfl(): ray r of lane src on every lane — the fields the test and the
+//     box test read (the triangle test the shear, the sphere test the raw
+//     direction), no others;
+//   NEG_ZERO: the test can return a hit at t = -0.0 (a sphere hit from a
+//     ray that starts on its surface and leaves it: c / q = +0 / (q < 0));
+//     a triangle hit's t is > delta_t >= 0.
 struct TriPrim {
+    static constexpr int COLS = 10;  // p0 xyz, p1 xyz, p2 xyz, valid
+    static constexpr bool BY_AXIS = true;
+    static constexpr bool NEG_ZERO = false;
     __device__ __forceinline__ static float test(const float* row, const Ray& r, float t_best,
                                                  const Consts& k) {
         return tri_test(row, r, t_best, k);
     }
+    __device__ __forceinline__ static void load(const float* row, float* p) {
+        const float4 a = __ldg(reinterpret_cast<const float4*>(row));
+        const float4 b = __ldg(reinterpret_cast<const float4*>(row) + 1);
+        const float2 c = __ldg(reinterpret_cast<const float2*>(row) + 4);
+        p[0] = a.x, p[1] = a.y, p[2] = a.z, p[3] = a.w;
+        p[4] = b.x, p[5] = b.y, p[6] = b.z, p[7] = b.w;
+        p[8] = c.x, p[9] = c.y;
+    }
+    template <int KZ>
+    __device__ __forceinline__ static float test_kz(const float* p, const Ray& r, float t_best,
+                                                    const Consts& k) {
+        return tri_test<KZ, true>(p, r, t_best, k);
+    }
+    __device__ __forceinline__ static Ray shfl(const Ray& r, int src) {
+        constexpr unsigned FULL = 0xffffffffu;
+        Ray q{};
+        q.ox = __shfl_sync(FULL, r.ox, src);
+        q.oy = __shfl_sync(FULL, r.oy, src);
+        q.oz = __shfl_sync(FULL, r.oz, src);
+        q.sx = __shfl_sync(FULL, r.sx, src);
+        q.sy = __shfl_sync(FULL, r.sy, src);
+        q.sz = __shfl_sync(FULL, r.sz, src);
+        q.kz = __shfl_sync(FULL, r.kz, src);
+        q.ix = __shfl_sync(FULL, r.ix, src);
+        q.iy = __shfl_sync(FULL, r.iy, src);
+        q.iz = __shfl_sync(FULL, r.iz, src);
+        return q;
+    }
 };
 struct SpherePrim {
+    static constexpr int COLS = 14;  // w2o rows, translation, radius, valid
+    static constexpr bool BY_AXIS = false;
+    static constexpr bool NEG_ZERO = true;
     __device__ __forceinline__ static float test(const float* row, const Ray& r, float t_best,
                                                  const Consts& k) {
         return sphere_test(row, r, t_best, k);
+    }
+    __device__ __forceinline__ static void load(const float* row, float* p) {
+        const float4 a = __ldg(reinterpret_cast<const float4*>(row));
+        const float4 b = __ldg(reinterpret_cast<const float4*>(row) + 1);
+        const float4 c = __ldg(reinterpret_cast<const float4*>(row) + 2);
+        const float2 e = __ldg(reinterpret_cast<const float2*>(row) + 6);
+        p[0] = a.x, p[1] = a.y, p[2] = a.z, p[3] = a.w;
+        p[4] = b.x, p[5] = b.y, p[6] = b.z, p[7] = b.w;
+        p[8] = c.x, p[9] = c.y, p[10] = c.z, p[11] = c.w;
+        p[12] = e.x, p[13] = e.y;
+    }
+    template <int KZ>
+    __device__ __forceinline__ static float test_kz(const float* p, const Ray& r, float t_best,
+                                                    const Consts& k) {
+        return sphere_test(p, r, t_best, k);
+    }
+    __device__ __forceinline__ static Ray shfl(const Ray& r, int src) {
+        constexpr unsigned FULL = 0xffffffffu;
+        Ray q{};
+        q.ox = __shfl_sync(FULL, r.ox, src);
+        q.oy = __shfl_sync(FULL, r.oy, src);
+        q.oz = __shfl_sync(FULL, r.oz, src);
+        q.dx = __shfl_sync(FULL, r.dx, src);
+        q.dy = __shfl_sync(FULL, r.dy, src);
+        q.dz = __shfl_sync(FULL, r.dz, src);
+        q.ix = __shfl_sync(FULL, r.ix, src);
+        q.iy = __shfl_sync(FULL, r.iy, src);
+        q.iz = __shfl_sync(FULL, r.iz, src);
+        return q;
     }
 };
 

@@ -107,11 +107,13 @@ ENTRY_POINTS = {
     # intersect_warp.cu: t_out, row_out, entered_out, improved_out / hit_out; stream
     "curry_tri_closest_hit_warp": _TABLE_ARGS + [_P] * 5,
     "curry_tri_any_hit_warp": _TABLE_ARGS + [_P] * 2,
-    # intersect.cu
+    "curry_sphere_closest_hit_warp": _TABLE_ARGS + [_P] * 3,  # t_out, row_out; stream
+    "curry_sphere_any_hit_warp": _TABLE_ARGS + [_P] * 2,
+    # intersect.cu, the same signatures
     "curry_tri_closest_hit_thread": _TABLE_ARGS + [_P] * 5,
     "curry_tri_any_hit_thread": _TABLE_ARGS + [_P] * 2,
-    "curry_sphere_closest_hit": _TABLE_ARGS + [_P] * 3,  # t_out, row_out; stream
-    "curry_sphere_any_hit": _TABLE_ARGS + [_P] * 2,
+    "curry_sphere_closest_hit_thread": _TABLE_ARGS + [_P] * 3,
+    "curry_sphere_any_hit_thread": _TABLE_ARGS + [_P] * 2,
     # intersect_group.cu
     "curry_tri_closest_hit_groups": _TABLE_ARGS + [_P] * 3,
     "curry_tri_any_hit_groups": _TABLE_ARGS + [_P] * 2,

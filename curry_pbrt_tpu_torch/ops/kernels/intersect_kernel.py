@@ -59,11 +59,12 @@ SLAB_CLUSTERS = 256  # clusters per slab
 USE_SUPERS_MIN = 96  # enable the super-cluster level beyond this many clusters
 
 # Kernel launches per wrapper since the last reset (plain-version calls on
-# CPU tensors are not launches and are not counted). tri_*: the warp walk;
-# tri_*_thread: the per-thread walk.
+# CPU tensors are not launches and are not counted). tri_* / sphere_*: the
+# warp walk; *_thread: the per-thread walk.
 LAUNCHES = {"tri_closest": 0, "tri_closest_stats": 0, "tri_any": 0,
             "tri_closest_thread": 0, "tri_closest_stats_thread": 0, "tri_any_thread": 0,
-            "sphere_closest": 0, "sphere_any": 0,
+            "sphere_closest": 0, "sphere_any": 0, "sphere_closest_thread": 0,
+            "sphere_any_thread": 0,
             "tri_closest_group": 0, "tri_any_group": 0, "slab_grid": 0}
 
 WARP = 32
@@ -468,9 +469,10 @@ def _check(o, d, t_max, prims, caabb, saabb, slab_aabb, block, cps, use_supers):
 
 
 def launch_plan(block_t: int) -> str:
-    """The walk tri_closest_hit_tables / tri_any_hit_tables launch for
-    tables of block_t rows a cluster: "thread" (csrc/intersect.cu) up to
-    PER_THREAD_MAX_BLOCK_T, "warp" (csrc/intersect_warp.cu) beyond."""
+    """The walk tri_closest_hit_tables / tri_any_hit_tables (and the sphere
+    wrappers, from block_s) launch for tables of block_t rows a cluster:
+    "thread" (csrc/intersect.cu) up to PER_THREAD_MAX_BLOCK_T, "warp"
+    (csrc/intersect_warp.cu) beyond."""
     return "thread" if block_t <= PER_THREAD_MAX_BLOCK_T else "warp"
 
 

@@ -1,6 +1,6 @@
 """Sphere cluster traversal (K3): the host table construction, the wrappers
-of the closest-hit and any-hit sphere kernels in csrc/intersect.cu, and
-their plain PyTorch versions.
+of the closest-hit and any-hit sphere kernels in csrc/intersect_warp.cu and
+csrc/intersect.cu, and their plain PyTorch versions.
 
 Counterpart of the JAX package's ops/pallas/sphere_kernel.py. A sphere is
 one table row holding its world-to-object transform and radius; spheres are
@@ -9,10 +9,12 @@ grouped into supers and slabs and ordered front-to-back exactly as the
 triangle tables are (`build_sphere_tables` is copied as it is, so both
 packages build identical tables). The walk and its acceptance rule are the
 triangle kernels' (intersect_kernel._closest_plain / _any_plain here, the
-templated walk in csrc/intersect.cu on the card); only the per-pair test
+walks templated over the primitive on the card); only the per-pair test
 differs: each ray goes into each sphere's object space through its raw
 direction and the stable q-form quadratic is solved (reference
-sphere.rs:111-132).
+sphere.rs:111-132). Unlike a triangle hit, a sphere hit can be t = -0.0 (a
+ray that starts on the surface and leaves it: c = +0 over q < 0); every
+version returns that -0.0, sign included.
 
 Sphere table layout (S_pad, 16) f32:
   cols 0-8  w2o rotation rows (r00 r01 r02 r10 .. r22)
@@ -21,9 +23,14 @@ Sphere table layout (S_pad, 16) f32:
   col 13    valid flag (+1/-1)
 
 `sphere_closest_hit_tables` / `sphere_any_hit_tables` run the plain
-versions for CPU tensors and launch the CUDA kernels for CUDA tensors (and
-raise if those cannot run); their launches are counted in
-intersect_kernel.LAUNCHES.
+versions for CPU tensors; for CUDA tensors they launch the walk that
+intersect_kernel.launch_plan picks from block_s — the warp-cooperative walk
+of csrc/intersect_warp.cu at the tables' 64 rows a cluster — and raise if it
+cannot run: there is no fallback from the card to the plain code.
+`sphere_closest_hit_warp` / `sphere_closest_hit_thread` (and the any-hit
+pair) force one walk: the A/B of chip_smoke.py. Launches are counted in
+intersect_kernel.LAUNCHES: sphere_closest / sphere_any for the warp walk,
+sphere_closest_thread / sphere_any_thread for the per-thread walk.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from curry_pbrt_tpu_torch.ops.kernels.intersect_kernel import (
     _launch,
     _round_up,
     kdmedian_order,
+    launch_plan,
     union_boxes,
 )
 from curry_pbrt_tpu_torch.ops.math import safe_sqrt
@@ -232,36 +240,84 @@ def sphere_any_hit_plain(o, d, t_max, sph16, caabb, saabb, slab_aabb, *,
 # wrappers
 
 
-def sphere_closest_hit_tables(o, d, t_max, sph16, caabb, saabb, slab_aabb, *,
-                              block_s: int, clusters_per_slab: int, use_supers: bool):
-    """Closest hit over SphereTables tensors → (t: (N,) f32, FLOAT_MAX on
-    miss; row: (N,) int32 table row, -1 on miss; row_sphere maps it to the
-    sphere). CPU tensors → plain version; CUDA tensors → the CUDA kernel."""
+def _closest(walk, o, d, t_max, sph16, caabb, saabb, slab_aabb, block_s, clusters_per_slab,
+             use_supers):
     args = (o, d, t_max, sph16, caabb, saabb, slab_aabb)
     _check(*args, block_s, clusters_per_slab, use_supers)
     if o.device.type == "cpu":
         return sphere_closest_hit_plain(*args, block_s=block_s,
                                         clusters_per_slab=clusters_per_slab,
                                         use_supers=use_supers)
+    walk = walk or launch_plan(block_s)
     outs = _closest_outputs(o, stats=False)
-    _launch("curry_sphere_closest_hit", "sphere_closest", outs, *args, block_s,
-            clusters_per_slab, use_supers)
+    _launch("curry_sphere_closest_hit_" + walk,
+            "sphere_closest_thread" if walk == "thread" else "sphere_closest", outs, *args,
+            block_s, clusters_per_slab, use_supers)
     return tuple(outs)
 
 
-def sphere_any_hit_tables(o, d, t_max, sph16, caabb, saabb, slab_aabb, *,
-                          block_s: int, clusters_per_slab: int, use_supers: bool):
-    """Any-hit over SphereTables tensors → (N,) bool. CPU tensors → plain
-    version; CUDA tensors → the CUDA kernel."""
+def _any(walk, o, d, t_max, sph16, caabb, saabb, slab_aabb, block_s, clusters_per_slab,
+         use_supers):
     args = (o, d, t_max, sph16, caabb, saabb, slab_aabb)
     _check(*args, block_s, clusters_per_slab, use_supers)
     if o.device.type == "cpu":
         return sphere_any_hit_plain(*args, block_s=block_s, clusters_per_slab=clusters_per_slab,
                                     use_supers=use_supers)
+    walk = walk or launch_plan(block_s)
     hit = torch.empty((o.shape[0],), dtype=torch.bool, device=o.device)
-    _launch("curry_sphere_any_hit", "sphere_any", [hit], *args, block_s, clusters_per_slab,
-            use_supers)
+    _launch("curry_sphere_any_hit_" + walk,
+            "sphere_any_thread" if walk == "thread" else "sphere_any", [hit], *args, block_s,
+            clusters_per_slab, use_supers)
     return hit
+
+
+def sphere_closest_hit_tables(o, d, t_max, sph16, caabb, saabb, slab_aabb, *,
+                              block_s: int, clusters_per_slab: int, use_supers: bool):
+    """Closest hit over SphereTables tensors → (t: (N,) f32, FLOAT_MAX on
+    miss; row: (N,) int32 table row, -1 on miss; row_sphere maps it to the
+    sphere). CPU tensors → plain version; CUDA tensors → the walk
+    launch_plan picks from block_s (the warp walk at 64 rows a cluster)."""
+    return _closest(None, o, d, t_max, sph16, caabb, saabb, slab_aabb, block_s,
+                    clusters_per_slab, use_supers)
+
+
+def sphere_any_hit_tables(o, d, t_max, sph16, caabb, saabb, slab_aabb, *,
+                          block_s: int, clusters_per_slab: int, use_supers: bool):
+    """Any-hit over SphereTables tensors → (N,) bool. CPU tensors → plain
+    version; CUDA tensors → the walk launch_plan picks."""
+    return _any(None, o, d, t_max, sph16, caabb, saabb, slab_aabb, block_s, clusters_per_slab,
+                use_supers)
+
+
+def sphere_closest_hit_warp(o, d, t_max, sph16, caabb, saabb, slab_aabb, *,
+                            block_s: int, clusters_per_slab: int, use_supers: bool):
+    """sphere_closest_hit_tables through the warp walk
+    (csrc/intersect_warp.cu) whatever the plan."""
+    return _closest("warp", o, d, t_max, sph16, caabb, saabb, slab_aabb, block_s,
+                    clusters_per_slab, use_supers)
+
+
+def sphere_any_hit_warp(o, d, t_max, sph16, caabb, saabb, slab_aabb, *,
+                        block_s: int, clusters_per_slab: int, use_supers: bool):
+    """sphere_any_hit_tables through the warp walk whatever the plan."""
+    return _any("warp", o, d, t_max, sph16, caabb, saabb, slab_aabb, block_s,
+                clusters_per_slab, use_supers)
+
+
+def sphere_closest_hit_thread(o, d, t_max, sph16, caabb, saabb, slab_aabb, *,
+                              block_s: int, clusters_per_slab: int, use_supers: bool):
+    """sphere_closest_hit_tables through the per-thread walk
+    (csrc/intersect.cu, one thread per ray) whatever the plan: the A/B
+    baseline."""
+    return _closest("thread", o, d, t_max, sph16, caabb, saabb, slab_aabb, block_s,
+                    clusters_per_slab, use_supers)
+
+
+def sphere_any_hit_thread(o, d, t_max, sph16, caabb, saabb, slab_aabb, *,
+                          block_s: int, clusters_per_slab: int, use_supers: bool):
+    """sphere_any_hit_tables through the per-thread walk whatever the plan."""
+    return _any("thread", o, d, t_max, sph16, caabb, saabb, slab_aabb, block_s,
+                clusters_per_slab, use_supers)
 
 
 class DeviceSphereTables:
@@ -277,10 +333,28 @@ class DeviceSphereTables:
         self.kw = dict(block_s=tables.block_s, clusters_per_slab=tables.clusters_per_slab,
                        use_supers=tables.use_supers)
 
+    def _tables(self):
+        return self.sph16, self.caabb, self.saabb, self.slab_aabb
+
     def closest(self, o, d, t_max):
-        return sphere_closest_hit_tables(o, d, t_max, self.sph16, self.caabb, self.saabb,
-                                         self.slab_aabb, **self.kw)
+        return sphere_closest_hit_tables(o, d, t_max, *self._tables(), **self.kw)
 
     def any_hit(self, o, d, t_max):
-        return sphere_any_hit_tables(o, d, t_max, self.sph16, self.caabb, self.saabb,
-                                     self.slab_aabb, **self.kw)
+        return sphere_any_hit_tables(o, d, t_max, *self._tables(), **self.kw)
+
+    def closest_warp(self, o, d, t_max):
+        return sphere_closest_hit_warp(o, d, t_max, *self._tables(), **self.kw)
+
+    def any_hit_warp(self, o, d, t_max):
+        return sphere_any_hit_warp(o, d, t_max, *self._tables(), **self.kw)
+
+    def closest_thread(self, o, d, t_max):
+        return sphere_closest_hit_thread(o, d, t_max, *self._tables(), **self.kw)
+
+    def any_hit_thread(self, o, d, t_max):
+        return sphere_any_hit_thread(o, d, t_max, *self._tables(), **self.kw)
+
+    @property
+    def plan(self) -> str:
+        """The walk launch_plan picks for these tables."""
+        return launch_plan(self.kw["block_s"])

@@ -68,6 +68,28 @@ def _rays(seed, n, spread=14.0):
     return o, d, t_max
 
 
+def _on_surface(seed, n, n_small=69):
+    """A unit sphere at the origin among n_small small spheres, and rays
+    starting exactly on its surface, at (±1, 0, 0), (0, ±1, 0) and
+    (0, 0, ±1), in random directions: each hits it at t = ±0 (-0.0 where it
+    leaves the sphere: c = +0 over q < 0). No dead lanes: the JAX kernel
+    tests an entered tile for every ray of its group, and a dead ray
+    (t_max 0) on a surface passes the sphere test at t = 0 = t_max, so it
+    reports a hit there that the port's per-ray box gate never enters; the
+    integrators discard a dead ray's result."""
+    rng = np.random.default_rng(seed)
+    o2w = np.tile(np.eye(4, dtype=np.float32), (n_small + 1, 1, 1))
+    o2w[1:, :3, 3] = rng.uniform(-3, 3, (n_small, 3))
+    w2o = np.linalg.inv(o2w).astype(np.float32)
+    radius = np.concatenate([[1.0], rng.uniform(0.1, 0.3, n_small)]).astype(np.float32)
+    axes = np.concatenate([np.eye(3), -np.eye(3)]).astype(np.float32)
+    o = axes[rng.integers(0, 6, n)]
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t_max = np.full((n,), 1e30, np.float32)
+    return (w2o, o2w, radius, np.arange(n_small + 1, dtype=np.int32)), (o, d, t_max)
+
+
 def _tables(arrays, **kw):
     jt = JS.build_sphere_tables(*arrays, view_origin=np.zeros(3), **kw)
     tt = TS.build_sphere_tables(*arrays, view_origin=np.zeros(3), **kw)
@@ -111,21 +133,33 @@ def _assert_same(tab, o, d, t_max, jax_out, port_out):
 
 @pytest.mark.parametrize(
     "case",
-    ["translation-700", "affine-300", "supers-slabs-1500"],
+    ["translation-700", "affine-300", "supers-slabs-1500", "on-surface"],
 )
 def test_plain_sphere_kernels_match_jax(case):
+    """On the on-surface case (rays starting on a sphere, 512 of them) t
+    must also agree in its sign bit: both give -0.0 for the rays that leave
+    the sphere."""
+    o, d, t_max = _rays(5, 768)
     if case == "translation-700":
         tab = _tables(_translated_spheres(0, 700))
     elif case == "affine-300":
         tab = _tables(_spheres(3, 300))
+    elif case == "on-surface":
+        arrays, (o, d, t_max) = _on_surface(17, 512)
+        tab = _tables(arrays)
     else:  # supers, several slabs and a NaN padding cluster
         tab = _tables(_spheres(7, 1500), clusters_per_slab=16, use_supers=True)
         assert tab.use_supers and tab.slab_aabbs.shape[0] > 1
         assert np.isnan(tab.cluster_aabbs[:, 0]).any()
-    o, d, t_max = _rays(5, 768)
     jax_out, port_out = _run_both(tab, o, d, t_max)
     assert (port_out[1] >= 0).sum() > 50  # the case really hits something
     _assert_same(tab, o, d, t_max, jax_out, port_out)
+    if case == "on-surface":
+        (jt, jr, _), (tt, tr, _) = jax_out, port_out
+        assert (tr >= 0).all() and (tt == 0.0).all()  # every ray hits at ±0
+        np.testing.assert_array_equal(np.signbit(tt), np.signbit(jt))
+        np.testing.assert_array_equal(tab.row_sphere[tr], tab.row_sphere[jr])
+        assert np.signbit(tt).sum() > 100  # -0.0 hits, not only +0.0
 
 
 def test_first_hit_exactly_at_t_max():
