@@ -50,7 +50,8 @@ non-zero and no result line is printed:
                and the image sum against the JAX anchors (155,670,944 within
                1e-4 relative; 86446.0 within 1e-3 relative), and the plan's
                walk alone, as in phase 4;
-  6. configs — spherefield10k_256, mesh10k_512, mesh100k_512 and
+  6. configs — spheres_direct_256 (the direct-lighting integrator),
+               spherefield10k_256, mesh10k_512, mesh100k_512 and
                mesh600k_256 at their full bench configs: each planned once
                (its seconds printed on their own line: set-up, not render
                time), a warm-up pass, then one timed pass with its wall,
@@ -60,7 +61,8 @@ non-zero and no result line is printed:
                other walk's counters at 0), the ray sort must run on
                mesh100k and mesh600k, the plan's K1 / K2 walk alone (the
                warp walk on the meshes), and no plain version may run on
-               the card;
+               the card; spheres_direct_256 (no triangle, 4 spheres: the
+               dense sphere test) must launch no traversal kernel at all;
   7. bounds  — the kernels at the paths' own shapes, on rays captured from
                the warm-up passes of phase 6 (every K3 launch of one
                sphere-field pass: 7 closest and 3 any hit, 262,144 rays
@@ -84,6 +86,22 @@ non-zero and no result line is printed:
                probe on mesh10k; the slab-grid probe P at the JAX shape and
                at 16,384 blocks x 7 slabs against its plain version (rtol
                1e-5);
+  9. grad    — the differentiable path on cornell_tex: (a) the triangle
+               (tent) film at the headline, rendered twice — bit-equal, its
+               mean within 3% of phase 5's box image; (b) gradients of the
+               image sum w.r.t. the texture, every Kd and light_L at 64²,
+               8 spp, depth 5 through the kernels against the brute oracle
+               (rtol 1e-4, atol 1e-7); (c) BASELINE config 4 at the
+               headline: phase 5's image as the target, the texture reset
+               to 0.5, the gradient at that state twice (bit-equality
+               reported, 1e-5 relative required), then 3 Adam steps at lr
+               0.05 through parallel/mesh.make_train_step — the loss must
+               fall at every step — with each step's forward and backward
+               seconds, the sub-chunk size, the texel gradient checksum
+               and the peak device memory; (d) d image-sum / d light_L[0,0]
+               at full width against a central difference (rtol 2e-2);
+               (e) the launches of (c): the plan's K1 / K2 walk alone (the
+               per-thread walk at block_t 8), no plain version on the card;
 and then prints the per-kernel JSON line and, last, the device line. Each
 phase prints its seconds.
 
@@ -126,6 +144,7 @@ ANCHOR_CHECKSUM = 86446.0
 SEG_RTOL, SUM_RTOL = 1e-4, 1e-3
 # name: (scene, res, spp, depth, anchor segments, anchor checksum)
 CONFIGS = {
+    "spheres_direct_256": ("spheres.pbrt", 256, 16, 0, 2_418_216, 60703.7),
     "spherefield10k_256": ("spherefield10k.pbrt", 256, 4, 3, 1_243_639, 30907.0),
     "mesh10k_512": ("mesh10k.pbrt", 512, 16, 8, 11_243_977, 318225.1),
     "mesh100k_512": ("mesh100k.pbrt", 512, 16, 8, 11_251_281, 319003.6),
@@ -567,6 +586,27 @@ def check_group(name, gtab, ktab, gprim, kprim, rays, G, t_any=None, plain_reps=
     return out
 
 
+def leaf_params(tree, device):
+    """A copy of a params tree on `device` whose tensors are leaves of
+    their own (an optimizer may then update one in place)."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: leaf_params(v, device) for k, v in tree.items()}
+    return torch.as_tensor(tree).to(device).clone()
+
+
+def grad_leaves(params):
+    """(names, leaves): the textures, every Kd and light_L, set to
+    require grad."""
+    named = [(f"texture {k}", v) for k, v in params["textures"].items()]
+    named += [(f"Kd of material {m}", s["Kd"]) for m, s in params["materials"].items() if "Kd" in s]
+    named += [("light_L", params["light_L"])]
+    for _, leaf in named:
+        leaf.requires_grad_(True)
+    return [n for n, _ in named], [leaf for _, leaf in named]
+
+
 def main() -> int:
     t_start = time.time()
     import numpy as np
@@ -792,6 +832,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = head_launches = dict(K.LAUNCHES)
+    head_img = img
     checksum = float(img.astype(np.float64).sum())
     seg_rel = abs(segments - ANCHOR_SEGMENTS) / ANCHOR_SEGMENTS
     sum_rel = abs(checksum - ANCHOR_CHECKSUM) / ANCHOR_CHECKSUM
@@ -876,6 +917,18 @@ def main() -> int:
             raise AssertionError(f"{name} disagrees with the JAX anchors")
         if calls["plain"]:
             raise AssertionError(f"{name}: a plain version ran on the card")
+        n_tri = int((np.asarray(sc.tris.prim) >= 0).sum())
+        n_sph = int((np.asarray(sc.spheres.prim) >= 0).sum())
+        if n_tri == 0 and n_sph < AG.SPHERE_KERNEL_MIN:
+            # no triangle, and too few spheres for the sphere tables: no
+            # traversal kernel is on this path
+            if any(launches.values()):
+                raise AssertionError(f"{name}: a traversal kernel launched on a scene that takes "
+                                     f"the dense sphere test alone: {launches}")
+            log(f"[configs] {name}: launches no traversal kernel — no triangle, and its {n_sph} "
+                f"spheres (< {AG.SPHERE_KERNEL_MIN}) take the dense sphere test")
+            del plan
+            continue
         # the plan's walk: 8-row clusters (aggregate.plan_tri_kernel's small
         # scenes) keep the per-thread walk (launch_plan)
         walk = "thread" if sc.tris.count <= AG.SMALL_SCENE_TRIS else "warp"
@@ -909,12 +962,12 @@ def main() -> int:
 
     k3_pass = {}
     for kind, out_b, ent in (("closest", 8, "entered"), ("any", 1, "any_entered")):
-        calls = sorted(c for cfg, key, c in captured
-                       if cfg == "spherefield10k_256" and key == "sphere_" + kind)
-        if len(calls) != config_runs["spherefield10k_256"]["launches"]["sphere_" + kind]:
-            raise AssertionError(f"phase 7 holds {len(calls)} K3 {kind} calls of the sphere "
+        k3_calls = sorted(c for cfg, key, c in captured
+                          if cfg == "spherefield10k_256" and key == "sphere_" + kind)
+        if len(k3_calls) != config_runs["spherefield10k_256"]["launches"]["sphere_" + kind]:
+            raise AssertionError(f"phase 7 holds {len(k3_calls)} K3 {kind} calls of the sphere "
                                  f"field's pass, which launched a different number")
-        for call in calls:
+        for call in k3_calls:
             what = k3_call(kind, call)
             st = check_sphere_kernels(
                 f"spherefield10k {kind} call {call} ({what})", ftab,
@@ -1085,6 +1138,143 @@ def main() -> int:
         f"16384 blocks x 7 slabs max |d| {p_big[1]:.3g} (rel {p_big[2]:.3g}) vs plain (rtol "
         f"{PS.RTOL}); {p_ms:.4f} ms (plain {p_plain_ms:.4f}), bound {p_b[0]:.4f} ms ({p_b[1]}); "
         f"launches {p_launches}")
+
+    # ---- 9. the differentiable path
+    phases.start("9 grad")
+    from curry_pbrt_tpu_torch.parallel.mesh import (
+        backward_over_pixels,
+        make_train_step,
+        mse_pixel_loss,
+    )
+    from curry_pbrt_tpu_torch.render import _render_chunk, pixel_arrays
+
+    # (a) the tent film at the headline, twice: bit-equal, mean near the box
+    tri = compile_scene_file(REPO / "scenes" / "cornell_tex.pbrt", overrides={
+        "resolution": (res, res), "spp": spp, "max_depth": depth, "filter": "triangle"})
+    tri_plan = plan_render(tri, device="cuda")
+    tri_imgs, tri_walls = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        tri_imgs.append(render_plan(tri_plan, show_progress=False))
+        torch.cuda.synchronize()
+        tri_walls.append(time.time() - t0)
+    tri_equal = np.array_equal(tri_imgs[0], tri_imgs[1])
+    mean_rel = abs(float(tri_imgs[0].mean()) - float(head_img.mean())) / float(head_img.mean())
+    tri_box = float(np.abs(tri_imgs[0] - head_img).max())
+    log(f"[grad] (a) triangle filter, cornell_tex {res}² {spp} spp depth {depth} on {card}: walls "
+        f"{tri_walls[0]:.3f} / {tri_walls[1]:.3f} s, two renders bit-equal: {tri_equal}; mean "
+        f"{float(tri_imgs[0].mean()):.6f} vs the box film's {float(head_img.mean()):.6f} (rel "
+        f"{mean_rel:.3g}, ≤ 0.03), max |tent − box| {tri_box:.3g}")
+    if tri_imgs[0].shape != (res, res, 3) or not np.isfinite(tri_imgs[0]).all():
+        raise AssertionError("the triangle-filter image has the wrong shape or non-finite values")
+    if not tri_equal:
+        raise AssertionError("the two triangle-filter renders are not bit-equal")
+    if mean_rel > 0.03 or tri_box <= 1e-4:
+        raise AssertionError("the triangle-filter image is not a tent-filtered box image")
+
+    # (b) parameter gradients through the kernels against the brute oracle
+    small_g = compile_scene_file(REPO / "scenes" / "cornell_tex.pbrt", overrides={
+        "resolution": (64, 64), "spp": 8, "max_depth": depth})
+    grads_by = {}
+    for backend in ("brute", "kernel"):
+        gplan = plan_render(small_g, device="cuda", intersector=backend)
+        gparams = leaf_params(small_g.init_params, dev)
+        names, leaves = grad_leaves(gparams)
+        img_g = _render_chunk(gplan, gparams, *pixel_arrays(gplan))[0]
+        grads_by[backend] = torch.autograd.grad(img_g.sum(), leaves)
+    for gname, a, b in zip(names, grads_by["brute"], grads_by["kernel"]):
+        rel = float(((a - b).abs() / a.abs().clamp(min=1e-30)).max())
+        log(f"[grad] (b) d sum(image) / d {gname} {tuple(a.shape)} at 64² 8 spp depth {depth}: "
+            f"kernel vs brute max |Δ| {float((a - b).abs().max()):.3g} (max rel {rel:.3g}), "
+            f"|grad| sum {float(a.abs().sum()):.6g}")
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError(f"(b) a gradient w.r.t. {gname} is not finite")
+        if not torch.allclose(b, a, rtol=1e-4, atol=1e-7) or float(a.abs().sum()) == 0.0:
+            raise AssertionError(f"(b) kernel and brute gradients w.r.t. {gname} disagree "
+                                 f"(rtol 1e-4, atol 1e-7) or vanish")
+
+    # (c) the BASELINE config-4 step at full width: recover the texture
+    plan_h = plan_render(head, device="cuda")
+    po_h, px_h = pixel_arrays(plan_h)
+    target = torch.as_tensor(head_img.reshape(-1, 3), device=dev)  # from init_params
+    params_h = leaf_params(head.init_params, dev)
+    tex_key = next(iter(params_h["textures"]))
+    tex = params_h["textures"][tex_key]
+    with torch.no_grad():
+        tex.fill_(0.5)
+    tex.requires_grad_(True)
+    mse = mse_pixel_loss(target)
+    K.reset_launches()  # (e): the launches of (c) start here
+    plain_before = calls["plain"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    det = []
+    for _ in range(2):  # the gradient at one state, twice
+        tex.grad = None
+        times = {}
+        loss0 = backward_over_pixels(plan_h, params_h, po_h, px_h, mse, times=times)
+        det.append((tex.grad.clone(), float(loss0), times))
+    pass_launches = {k: v // 2 for k, v in K.LAUNCHES.items()}
+    g_bits = torch.equal(det[0][0], det[1][0])
+    g_rel = float((det[0][0] - det[1][0]).abs().max() / det[0][0].abs().max())
+    step = make_train_step(plan_h, torch.optim.Adam([tex], lr=0.05))
+    losses, step_stats = [], []
+    for k in range(3):
+        times = {}
+        torch.cuda.synchronize()
+        t0 = time.time()
+        losses.append(float(step(params_h, target, po_h, px_h, times=times)))
+        step_stats.append((time.time() - t0, times, float(tex.grad.abs().sum())))
+    with torch.no_grad():
+        img_3 = torch.as_tensor(render_plan(plan_h, params_h, show_progress=False).reshape(-1, 3),
+                                device=dev)
+        losses.append(float(mse(img_3, slice(None))))
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+    launches_c = dict(K.LAUNCHES)
+    log(f"[grad] (c) config-4 step, cornell_tex {res}² {spp} spp depth {depth}, the texture "
+        f"{tuple(tex.shape)} from 0.5, Adam lr 0.05, sub-chunks of {plan_h.chunk_pixels} pixels "
+        f"({plan_h.chunk_pixels * spp} rays; {-(-res * res // plan_h.chunk_pixels)} a pass) on "
+        f"{card}: peak device memory {peak_gb:.2f} GiB")
+    for k, (wall, times, gsum) in enumerate(step_stats):
+        log(f"[grad] (c) step {k + 1}: loss before {losses[k]:.6g}, wall {wall:.3f} s (forward "
+            f"{times['forward_s']:.3f} s, backward {times['backward_s']:.3f} s), texel "
+            f"gradient checksum Σ|grad| {gsum:.6g}")
+    log(f"[grad] (c) loss after step 3 {losses[3]:.6g}; losses {losses}")
+    log(f"[grad] (c) the gradient at one state twice: bit-equal {g_bits}, max rel diff "
+        f"{g_rel:.3g} (≤ 1e-5); checksums {float(det[0][0].abs().sum()):.6g} / "
+        f"{float(det[1][0].abs().sum()):.6g}; forward {det[0][2]['forward_s']:.3f} / "
+        f"{det[1][2]['forward_s']:.3f} s, backward {det[0][2]['backward_s']:.3f} / "
+        f"{det[1][2]['backward_s']:.3f} s")
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"(c) the loss did not fall at every step: {losses}")
+    if g_rel > 1e-5 or not torch.isfinite(det[0][0]).all():
+        raise AssertionError(f"(c) two gradients at one state differ by {g_rel:.3g} (> 1e-5)")
+
+    # (e) the launches of (c): the plan's K1 / K2 walk alone, no plain version
+    log(f"[grad] (e) launches during (c) (2 gradient passes, 3 steps, 1 forward): {launches_c}; "
+        f"per gradient pass {pass_launches}; plain calls on CUDA {calls['plain'] - plain_before}")
+    if calls["plain"] != plain_before or not ran_alone(launches_c, ctab.plan):
+        raise AssertionError(f"(c) did not run through the plan's K1 / K2 ({ctab.plan} walk) "
+                             f"alone")
+
+    # (d) a central finite difference of light_L[0, 0] at full width
+    params_d = leaf_params(head.init_params, dev)
+    light_L = params_d["light_L"].requires_grad_(True)
+    backward_over_pixels(plan_h, params_d, po_h, px_h, lambda img_s, sl: img_s.sum())
+    g00, eps = float(light_L.grad[0, 0]), 1e-2
+
+    def image_sum(delta):
+        bumped = light_L.detach().clone()
+        bumped[0, 0] += delta
+        img_d = render_plan(plan_h, dict(params_d, light_L=bumped), show_progress=False)
+        return float(img_d.astype(np.float64).sum())
+
+    fd = (image_sum(eps) - image_sum(-eps)) / (2 * eps)
+    fd_rel = abs(g00 - fd) / abs(fd)
+    log(f"[grad] (d) d sum(image) / d light_L[0, 0] at full width: autograd {g00:.6g}, central "
+        f"difference (eps {eps}) {fd:.6g}, rel {fd_rel:.3g} (≤ 2e-2)")
+    if not fd_rel <= 2e-2:
+        raise AssertionError("(d) the light_L gradient disagrees with its finite difference")
 
     phases.start()
     # ---- report

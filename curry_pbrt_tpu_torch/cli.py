@@ -22,6 +22,9 @@ def main(argv=None):
     ap.add_argument("--spp", type=int, help="samples per pixel override")
     ap.add_argument("--res", type=int, nargs=2, metavar=("X", "Y"), help="resolution override")
     ap.add_argument("--max-depth", type=int, help="path depth override")
+    ap.add_argument("--integrator", choices=["path", "directlighting"])
+    ap.add_argument("--filter", choices=["box", "triangle"],
+                    help="reconstruction filter override")
     ap.add_argument("--seed", type=int, default=0, help="sampler scramble seed")
     ap.add_argument("--no-clip", action="store_true", help="disable camera frustum culling")
     ap.add_argument("--chunk-pixels", type=int, help="pixels per device batch")
@@ -38,6 +41,10 @@ def main(argv=None):
         overrides["resolution"] = tuple(args.res)
     if args.max_depth is not None:
         overrides["max_depth"] = args.max_depth
+    if args.integrator is not None:
+        overrides["integrator"] = args.integrator
+    if args.filter is not None:
+        overrides["filter"] = args.filter
     if args.no_clip:
         overrides["clip"] = False
 

@@ -1,5 +1,5 @@
-"""Wavefront MIS-NEE path tracing (counterpart of the JAX package's
-models/integrators.py, path integrator).
+"""Wavefront integrators: MIS-NEE path tracing and direct lighting
+(counterpart of the JAX package's models/integrators.py).
 
 The whole ray batch lives in SoA tensors; a fixed-depth bounce loop runs
 over fixed-shape tensors with active-lane masks:
@@ -21,7 +21,9 @@ Algorithm mapping to the reference:
   path_trace               ← integrator/path.rs:13-66 (emission gating on
       bounce-0/specular, NEE gating on is_all_delta, RR after bounce 3 with
       q = max(0.05, 1−β.y), throughput update β·f·|cosθ|/pdf)
-The direct-lighting integrator waits for ROADMAP.md Queue 1 item 9.
+  direct_light_trace       ← integrator/direct_light.rs (NEE at each hit +
+      delta recursion; the reference's per-ray branch enumeration becomes a
+      luminance-weighted stochastic single branch, as in the JAX package)
 """
 
 from __future__ import annotations
@@ -309,6 +311,94 @@ def path_trace(
     if count_rays:
         return L, segments
     return L
+
+
+def direct_light_trace(
+    ctx: ShadeContext,
+    params,
+    o, d,  # (N,3) camera rays
+    indices,  # (N,) int64 halton indices
+    cfg: HaltonConfig,
+    perms,
+    max_depth: int,
+    dim_base: int,
+    max_delta_lobes: int,
+    count_rays: bool = False,
+):
+    """DirectLightIntegrator::li — NEE at the hit plus recursion through the
+    delta lobes (direct_light.rs:12-42).
+
+    The reference enumerates every delta branch per ray; here each lane
+    follows ONE delta lobe, chosen luminance-weighted through
+    bsdf_sample_delta and reweighted by 1/p (an unbiased estimator of the
+    same sum in one batch trace per level). The choice consumes the level's
+    D_BSDF_BUCKET sampler dim, so renders stay deterministic. Level `depth`
+    reads sampler dims dim_base + 8·depth + k, as the JAX package does.
+
+    With count_rays=True returns (radiance, segments): the closest hit per
+    live lane plus the NEE shadow / MIS pair per shaded lane, path_trace's
+    accounting, as an exact 0-d int64 count.
+    """
+    light_L = params["light_L"]
+
+    def level(o, d, weight, live, depth):
+        N = o.shape[0]
+        hit = ctx.intersect(o, d, torch.where(live, _FMAX, 0.0))
+        segments = live.sum()
+        prim = torch.clamp(hit.prim, min=0).long()
+        hit_light = torch.where(hit.prim >= 0, ctx.prim_light[prim], -1)
+        mat_ids = torch.where(hit.prim >= 0, ctx.prim_mat[prim], -1)
+        has_mat = hit.valid & (mat_ids >= 0) & live
+
+        # emission of a hit light (direct_light.rs:33-35), escaped env else
+        out = weight * LT.le_emitted(light_L, torch.where(live & (hit_light >= 0), hit_light, -1))
+        if ctx.envs:
+            esc = LT.le_out_scene_total(ctx.lights, ctx.envs, light_L, d)
+            out = out + torch.where((live & ~hit.valid)[:, None], weight * esc, 0.0)
+
+        dim0 = dim_base + DIMS_PER_BOUNCE * depth
+        u = {key: halton_sample(indices, dim0 + k, cfg, perms)
+             for k, key in enumerate(_U_KEYS[:D_BSDF_BUCKET])}
+        frame = _shading_frame(hit.n)
+        wo = -m.normalize(d)
+        fam_lobes = build_family_lobes(ctx, mat_ids, hit.uv, params)
+        nee = uniform_sample_one_light(ctx, params, hit, mat_ids, wo, frame, u, fam_lobes,
+                                       mask=has_mat)
+        out = out + torch.where(has_mat[:, None], weight * nee, 0.0)
+        segments = segments + 2 * has_mat.sum()
+
+        if depth + 1 < max_depth and max_delta_lobes > 0:
+            u_bucket = halton_sample(indices, dim0 + D_BSDF_BUCKET, cfg, perms)
+            fx, fy, fz = frame
+            wo_l = m.to_local(wo, fx, fy, fz)
+            bwi, bf = _zeros(N, 3, like=o), _zeros(N, 3, like=o)
+            bpdf, bok = _zeros(N, like=o), _zeros(N, dtype=torch.bool, like=o)
+            for fam, all_lobes in fam_lobes:
+                lobes = [lobe for lobe in all_lobes if lobe.is_delta]
+                if not lobes:
+                    continue
+                wi_l, f_l, p_l, ok_l = B.bsdf_sample_delta(lobes, wo_l, u_bucket)
+                sel = fam.mask(mat_ids)
+                bwi = torch.where(sel[:, None], m.to_world(wi_l, fx, fy, fz), bwi)
+                bf = torch.where(sel[:, None], f_l, bf)
+                bpdf = torch.where(sel, p_l, bpdf)
+                bok = torch.where(sel, ok_l, bok)
+            blive = has_mat & bok & (bpdf > 0)
+            cosw = torch.abs(m.dot(hit.n, bwi))
+            bo = offset_point_by_error(hit.p, hit.n, hit.p_error, bwi)
+            safe_pdf = torch.where(bpdf > 0, bpdf, 1.0)
+            wnext = torch.where(blive[:, None], weight * bf * (cosw / safe_pdf)[:, None], 0.0)
+            sub_out, sub_seg = level(bo, bwi, wnext, blive, depth + 1)
+            out = out + sub_out
+            segments = segments + sub_seg
+        return out, segments
+
+    N = o.shape[0]
+    out, segments = level(o, d, torch.ones((N, 3), dtype=torch.float32, device=o.device),
+                          torch.ones((N,), dtype=torch.bool, device=o.device), 0)
+    if count_rays:
+        return out, segments
+    return out
 
 
 def mat_all_delta_table(materials, registry) -> np.ndarray:

@@ -250,8 +250,9 @@ class MaterialFamily:
     Membership and member position are gathers from (n_mats + 1,) tables
     indexed by mat_id + 1 (slot 0 is the miss id -1), built once on the
     render device (build_tables); each constant slot's member values are
-    stacked once per render call (stack_params). Shading time has no loop
-    over members."""
+    stacked from the params tree once per chunk (stack_params, called by
+    render._chunk_sample_radiance, so that a chunk's autograd graph holds
+    its own stacking). Shading time has no loop over members."""
 
     members: List[CompiledMaterial]
     is_member: Optional[torch.Tensor] = None  # (n_mats + 1,) bool

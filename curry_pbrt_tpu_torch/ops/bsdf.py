@@ -70,6 +70,16 @@ def luminance(rgb):
 # Fresnel — specular.rs:24-44
 
 
+def _ratio(num, den):
+    """num / den for Fresnel's ratios, whose den = 0 only where num = 0
+    too: NaN there, as the plain division gives it, but with a finite
+    gradient. Lanes at cos θ = 0 (the masked lanes of other materials)
+    would otherwise send 0 · NaN = NaN into the gradient of the
+    interface's eta (the JAX package's gradient is NaN there)."""
+    zero = den == 0
+    return torch.where(zero, float("nan"), num / torch.where(zero, 1.0, den))
+
+
 def fresnel_dielectric(cos_i, eta_i, eta_t):
     """Unpolarized dielectric Fresnel reflectance; handles both sides and TIR."""
     ei = torch.where(cos_i > 0, eta_i, eta_t)
@@ -79,8 +89,8 @@ def fresnel_dielectric(cos_i, eta_i, eta_t):
     st = si * ei / et
     tir = st >= 1.0
     ct = m.safe_sqrt(1.0 - st * st)
-    r_par = (et * ci - ei * ct) / (et * ci + ei * ct)
-    r_perp = (ei * ci - et * ct) / (ei * ci + et * ct)
+    r_par = _ratio(et * ci - ei * ct, et * ci + ei * ct)
+    r_perp = _ratio(ei * ci - et * ct, ei * ci + et * ct)
     fr = 0.5 * (r_par * r_par + r_perp * r_perp)
     return torch.where(tir, 1.0, fr)
 

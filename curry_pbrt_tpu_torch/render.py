@@ -1,11 +1,17 @@
 """Render orchestration: scene → chunked wavefront rendering → film
-(counterpart of the JAX package's render.py, box filter and path
-integrator).
+(counterpart of the JAX package's render.py: path and direct-lighting
+integrators, box and triangle films).
 
 The film is split into pixel chunks; each chunk renders all its spp samples
 in one batch of tensors on the render device, laid out pixel-major, and
-reduces to per-pixel means there. The host enqueues work and reads back only
-the finished image (and the NaN and segment counts).
+reduces there: to per-pixel means (box film), or through the tent splat
+into one full-film (film, weight) pair that every chunk adds into (triangle
+film). The host enqueues work and reads back only the finished image (and
+the NaN and segment counts).
+
+`_render_chunk` and `_render_chunk_splat` are differentiable with respect
+to the params leaves that require grad (geometry stops at the traversal);
+`render_scene` and `render_plan`, which return numpy, run without a graph.
 """
 
 from __future__ import annotations
@@ -20,7 +26,8 @@ import torch
 from curry_pbrt_tpu_torch.interop import params_from_numpy
 from curry_pbrt_tpu_torch.models import integrators as I
 from curry_pbrt_tpu_torch.models.camera import generate_rays
-from curry_pbrt_tpu_torch.models.materials import build_families
+from curry_pbrt_tpu_torch.models.materials import build_families, lobe_kinds
+from curry_pbrt_tpu_torch.ops import bsdf as B
 from curry_pbrt_tpu_torch.ops import film as F
 from curry_pbrt_tpu_torch.ops import intersect as isect
 from curry_pbrt_tpu_torch.ops.halton import (
@@ -127,6 +134,12 @@ class RenderPlan:
     dim_base: int
     device: torch.device
 
+    def max_delta_lobes(self) -> int:
+        """The most delta lobes of any shaded material (0: direct lighting
+        never recurses)."""
+        return max((sum(1 for k in lobe_kinds(mat, self.scene.material_registry)
+                        if k in B.DELTA_KINDS) for mat in self.ctx.materials), default=0)
+
 
 def plan_render(scene: Scene, device="cuda", chunk_pixels: Optional[int] = None,
                 ray_sort: Optional[bool] = None, intersector: str = "kernel") -> RenderPlan:
@@ -135,16 +148,8 @@ def plan_render(scene: Scene, device="cuda", chunk_pixels: Optional[int] = None,
     intersector: "kernel" (the default on every device) or "brute"
     (make_intersectors)."""
     device = resolve_device(device)
-    if scene.settings.integrator != "path":
-        raise NotImplementedError(
-            f"integrator {scene.settings.integrator!r} is not ported to "
-            "curry_pbrt_tpu_torch yet (ROADMAP.md Queue 1 item 9); use 'path'"
-        )
-    if scene.settings.filter != "box":
-        raise NotImplementedError(
-            f"film filter {scene.settings.filter!r} is not ported yet "
-            "(ROADMAP.md Queue 1 item 11); use 'box'"
-        )
+    if scene.settings.integrator not in ("path", "directlighting"):
+        raise ValueError(f"unknown integrator {scene.settings.integrator!r}")
     xres, yres = scene.settings.resolution
     spp = scene.settings.spp
     cfg = make_halton_config((xres, yres), spp, seed=scene.settings.seed)
@@ -166,10 +171,18 @@ def plan_render(scene: Scene, device="cuda", chunk_pixels: Optional[int] = None,
 
 
 def _chunk_sample_radiance(plan: RenderPlan, params, pix_offsets, pix_xy):
-    """Per-SAMPLE radiance for one pixel chunk. pix_offsets: (C,) int64
-    Halton pixel offsets; pix_xy: (C,2) f32 integer pixel coords, both on
-    the plan's device. Returns (radiance (C·spp,3), traced segments)."""
+    """Per-SAMPLE radiance for one pixel chunk (shared by the box and splat
+    films). params: a tree of tensors on the plan's device; pix_offsets:
+    (C,) int64 Halton pixel offsets; pix_xy: (C,2) f32 integer pixel
+    coords, both on the plan's device. Returns (radiance (C·spp,3), film_xy
+    (C·spp,2), traced segments).
+
+    The material families' member constants are stacked from `params` here,
+    once per chunk, so that under grad every chunk's graph holds its own
+    stacking and a backward per chunk frees only that chunk's graph."""
     scene, cfg = plan.scene, plan.cfg
+    for fam in plan.ctx.families:
+        fam.stack_params(params)
     spp = scene.settings.spp
     C = pix_offsets.shape[0]
     offs = torch.repeat_interleave(pix_offsets, spp)
@@ -180,18 +193,38 @@ def _chunk_sample_radiance(plan: RenderPlan, params, pix_offsets, pix_xy):
     film_xy = torch.repeat_interleave(pix_xy, spp, dim=0) + jitter
     lens_u = halton_sample_2d(indices, 2, cfg, plan.perms) if scene.camera.has_lens else None
     o, d = generate_rays(scene.camera, film_xy, lens_u)
-    return I.path_trace(
-        plan.ctx, params, o, d, indices, cfg, plan.perms,
-        scene.settings.max_depth, plan.dim_base, count_rays=True,
-    )
+    if scene.settings.integrator == "path":
+        radiance, segments = I.path_trace(
+            plan.ctx, params, o, d, indices, cfg, plan.perms,
+            scene.settings.max_depth, plan.dim_base, count_rays=True,
+        )
+    else:
+        radiance, segments = I.direct_light_trace(
+            plan.ctx, params, o, d, indices, cfg, plan.perms,
+            scene.settings.max_depth, plan.dim_base, plan.max_delta_lobes(), count_rays=True,
+        )
+    return radiance, film_xy, segments
 
 
 def _render_chunk(plan: RenderPlan, params, pix_offsets, pix_xy):
     """→ ((C, 3) box-filtered pixel means, (C,) dropped-NaN-sample counts,
     traced segments)."""
-    radiance, segments = _chunk_sample_radiance(plan, params, pix_offsets, pix_xy)
+    radiance, _, segments = _chunk_sample_radiance(plan, params, pix_offsets, pix_xy)
     means, bad = F.accumulate_box(radiance, plan.scene.settings.spp, return_nan_counts=True)
     return means, bad, segments
+
+
+def _render_chunk_splat(plan: RenderPlan, params, pix_offsets, pix_xy, n_pixels: int):
+    """One chunk's FULL-FILM tent-splat contribution: → (film (n_pixels,3),
+    wsum (n_pixels,), dropped-NaN-sample count, traced segments). A
+    sample's footprint may cross chunk edges, so each chunk adds into a
+    whole-film pair, which the caller sums over chunks."""
+    radiance, film_xy, segments = _chunk_sample_radiance(plan, params, pix_offsets, pix_xy)
+    xres, yres = plan.scene.settings.resolution
+    rad4, ids4, w4 = F.triangle_taps(film_xy, radiance, xres, yres)
+    film, wsum = F.filter_splat(rad4, ids4, w4, n_pixels)
+    n_bad = torch.sum(torch.any(torch.isnan(radiance), dim=-1))
+    return film, wsum, n_bad, segments
 
 
 def _chunked_pixel_arrays(plan: RenderPlan):
@@ -209,6 +242,16 @@ def _chunked_pixel_arrays(plan: RenderPlan):
     po = np.pad(offs, (0, pad)).reshape(K, C)
     px = np.pad(pix_xy, ((0, pad), (0, 0))).reshape(K, C, 2)
     return po, px, n_pixels
+
+
+def pixel_arrays(plan: RenderPlan):
+    """Every pixel's Halton offset ((P,) int64) and integer (x, y) ((P,2)
+    float32), in raster order on the plan's device: the pixel arguments of
+    _render_chunk, _render_chunk_splat and the train step for the whole
+    film."""
+    po, px, n_pixels = _chunked_pixel_arrays(plan)
+    return (torch.as_tensor(po.reshape(-1)[:n_pixels].astype(np.int64), device=plan.device),
+            torch.as_tensor(px.reshape(-1, 2)[:n_pixels], device=plan.device))
 
 
 def render_scene(
@@ -238,10 +281,10 @@ def render_plan(plan: RenderPlan, params=None, show_progress: bool = True,
     scene = plan.scene
     dev = plan.device
     params = params_from_numpy(scene.init_params if params is None else params, dev)
-    for fam in plan.ctx.families:  # member constants stacked once per call
-        fam.stack_params(params)
     xres, yres = scene.settings.resolution
     po, px, n_pixels = _chunked_pixel_arrays(plan)
+    if scene.settings.filter == "triangle":
+        return _render_plan_splat(plan, params, po, px, n_pixels, show_progress, count_rays)
     C = plan.chunk_pixels
     out = torch.empty((n_pixels, 3), dtype=torch.float32, device=dev)
     nan_counts = torch.zeros((n_pixels,), dtype=torch.int32, device=dev)
@@ -269,6 +312,44 @@ def render_plan(plan: RenderPlan, params=None, show_progress: bool = True,
         )
     log.info("rendered %dx%d @ %d spp on %s in %.2fs", xres, yres, scene.settings.spp,
              dev, time.time() - t0)
+    img = img.reshape(yres, xres, 3)
+    if count_rays:
+        return img, int(segments.item())
+    return img
+
+
+def _render_plan_splat(plan: RenderPlan, params, po, px, n_pixels: int, show_progress: bool,
+                       count_rays: bool):
+    """render_plan's triangle-filter branch: every chunk adds its full-film
+    (film, wsum) into one pair, in chunk order, then the film is normalized
+    by its weights. Only the real pixels of the last chunk are rendered, so
+    no padding pixel ever reaches the splat."""
+    scene, dev, C = plan.scene, plan.device, plan.chunk_pixels
+    xres, yres = scene.settings.resolution
+    film = torch.zeros((n_pixels, 3), dtype=torch.float32, device=dev)
+    wsum = torch.zeros((n_pixels,), dtype=torch.float32, device=dev)
+    nan_total = torch.zeros((), dtype=torch.int64, device=dev)
+    segments = torch.zeros((), dtype=torch.int64, device=dev)
+    t0 = time.time()
+    with torch.no_grad(), progress(po.shape[0], enabled=show_progress) as tick:
+        for k in range(po.shape[0]):
+            n_real = min(C, n_pixels - k * C)
+            pk = torch.as_tensor(po[k, :n_real].astype(np.int64), device=dev)
+            xk = torch.as_tensor(px[k, :n_real], device=dev)
+            f, w, n_bad, seg = _render_chunk_splat(plan, params, pk, xk, n_pixels)
+            film = film + f
+            wsum = wsum + w
+            nan_total = nan_total + n_bad
+            segments = segments + seg
+            tick(1)
+        img = F.normalize_splat(film, wsum).cpu().numpy()
+    if int(nan_total) > 0:
+        log.warning(
+            "dropped %d NaN radiance sample(s) (filter-splat path) — "
+            "the reference warns per sample (render.rs:34-40)", int(nan_total),
+        )
+    log.info("rendered %dx%d @ %d spp (triangle filter) on %s in %.2fs", xres, yres,
+             scene.settings.spp, dev, time.time() - t0)
     img = img.reshape(yres, xres, 3)
     if count_rays:
         return img, int(segments.item())
