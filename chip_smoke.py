@@ -102,16 +102,21 @@ non-zero and no result line is printed:
                at full width against a central difference (rtol 2e-2);
                (e) the launches of (c): the plan's K1 / K2 walk alone (the
                per-thread walk at block_t 8), no plain version on the card;
-  10. env + bvh — the environment light and the flat BVH: (a) the BVH walk
-               (csrc/bvh_walk.cu, closest and any hit) against its plain
-               version on a soup of 5k triangles and 64 rotated, scaled
-               spheres and on the sphere field's BVH, 32k rays with dead
-               lanes and a batch whose t_max is each ray's hit t (t
-               bit-equal, refs equal up to exact-t ties, any-hit equal), with
-               both ms; (b) spherefield10k_256 and mesh10k_512 through
+  10. env + bvh — the environment light and the flat BVH: (a) both BVH
+               walks of csrc/bvh_walk.cu (closest and any hit) — the
+               live-ray walk of the render path, launched twice (bit-equal),
+               and the per-thread walk (PR 7), its A/B baseline — against
+               their plain version on a soup of 5k triangles and 64 rotated,
+               scaled spheres and on the sphere field's BVH: 32k rays with
+               dead lanes, a batch whose t_max is each ray's hit t, an
+               all-dead and an all-live batch (t bit-equal, refs equal up to
+               exact-t ties, any-hit equal); both walks' ms in turns (CUDA
+               events around back-to-back calls, and the card's time
+               alone), the plain ms; (b) spherefield10k_256 and mesh10k_512 through
                intersector="bvh" against the JAX anchors of phase 6, the
-               BVH walk alone (BVH build seconds printed as set-up), and
-               the walk at mesh10k's bounce-2 shapes with its bound; (c)
+               live-ray walk alone (BVH build seconds printed as set-up),
+               and both walks at mesh10k's bounce-2 shapes with their
+               bound; (c)
                mesh10k_env_512 (tools/env_scene.py) through the warp K1 / K2
                and through the BVH walk: each other's segments within 1e-4
                and image sums within 1e-3, wall, seg/s, launches and peak
@@ -148,6 +153,7 @@ from curry_pbrt_tpu_torch.tools.roofline import (  # noqa: E402
     TRI_TEST_OPS,
     bound,
     cuda_ms,
+    device_ms,
     least_ms,
     nvidia_smi,
     table_bytes,
@@ -662,11 +668,14 @@ def hold_bvh(name, bvh, rays, t_k, r_k, t_ref, r_ref, what):
 
 
 def check_bvh(name, bvh, rays, reps=None):
-    """The BVH walk (closest and any hit, csrc/bvh_walk.cu) against its
-    plain version (ops/bvh.py's lockstep loop) on the card: t bit-equal,
-    refs equal up to exact-t ties, any-hit equal. Returns the errors, the
-    plain version's work counts (the bound's input) and, with reps, the
-    walk's and the plain version's ms."""
+    """Both BVH walks (closest and any hit, csrc/bvh_walk.cu) against their
+    plain version (ops/bvh.py's lockstep loop) on the card: the live-ray
+    walk of the render path, launched twice (bit-equal: its live list's
+    order varies, the results must not), and the per-thread walk of PR 7,
+    its A/B baseline. t bit-equal, refs equal up to exact-t ties, any-hit
+    equal. Returns the errors, the plain version's work counts (the bound's
+    input) and, with reps, both walks' ms timed in turns and the plain
+    version's."""
     import torch
 
     from curry_pbrt_tpu_torch.ops import bvh as PB
@@ -676,16 +685,32 @@ def check_bvh(name, bvh, rays, reps=None):
     n = o.shape[0]
     t_k, r_k = BK.bvh_closest(bvh, o, d, t_max)
     h_k = BK.bvh_any(bvh, o, d, t_max)
+    t_k2, r_k2 = BK.bvh_closest(bvh, o, d, t_max)
+    h_k2 = BK.bvh_any(bvh, o, d, t_max)
+    t_t, r_t = BK.bvh_closest_per_thread(bvh, o, d, t_max)
+    h_t = BK.bvh_any_per_thread(bvh, o, d, t_max)
     torch.cuda.synchronize()
+    if not (torch.equal(t_k.view(torch.int32), t_k2.view(torch.int32))
+            and torch.equal(r_k, r_k2) and torch.equal(h_k, h_k2)):
+        raise AssertionError(f"{name}: two launches of the live-ray walk differ")
     t_p, r_p, nodes, tri, sph = PB.bvh_traverse(bvh, o, d, t_max, stats=True)
     _, ra_p, a_nodes, a_tri, a_sph = PB.bvh_traverse(bvh, o, d, t_max, any_hit=True, stats=True)
     h_p = ra_p >= 0
-    ties = hold_bvh(name, bvh, rays, t_k, r_k, t_p, r_p, "BVH walk vs plain")
-    hold_any(name, h_k, h_p, t_max, "BVH any-hit walk vs plain")
-    hit = r_k >= 0
-    out = {"max_abs_err": (t_k[hit] - t_p[hit]).abs().max().item() if hit.any() else 0.0,
-           "any_max_abs_err": (h_k.float() - h_p.float()).abs().max().item() if n else 0.0,
-           "n": n, "live": int((t_max > 0).sum()), "hits": int(hit.sum()),
+    ties = hold_bvh(name, bvh, rays, t_k, r_k, t_p, r_p, "live-ray walk vs plain")
+    hold_any(name, h_k, h_p, t_max, "live-ray any-hit walk vs plain")
+    hold_bvh(name, bvh, rays, t_t, r_t, t_p, r_p, "per-thread walk vs plain")
+    hold_any(name, h_t, h_p, t_max, "per-thread any-hit walk vs plain")
+
+    def t_err(t, r):
+        hit = r >= 0
+        return (t[hit] - t_p[hit]).abs().max().item() if hit.any() else 0.0
+
+    def h_err(h):
+        return (h.float() - h_p.float()).abs().max().item() if n else 0.0
+
+    out = {"max_abs_err": t_err(t_k, r_k), "any_max_abs_err": h_err(h_k),
+           "thread_max_abs_err": t_err(t_t, r_t), "any_thread_max_abs_err": h_err(h_t),
+           "n": n, "live": int((t_max > 0).sum()), "hits": int((r_k >= 0).sum()),
            "any_hits": int(h_k.sum()), "ties": ties,
            "work": (int(nodes.sum()), int(tri.sum()), int(sph.sum())),
            "any_work": (int(a_nodes.sum()), int(a_tri.sum()), int(a_sph.sum())),
@@ -693,16 +718,35 @@ def check_bvh(name, bvh, rays, reps=None):
     log(f"  {name}: {n} rays ({out['live']} live), {out['hits']} closest hits, "
         f"{out['any_hits']} any hits, {ties} tie refs; plain work per live ray: "
         f"{out['work'][0] / max(out['live'], 1):.1f} nodes, "
-        f"{(out['work'][1] + out['work'][2]) / max(out['live'], 1):.2f} prim tests — the walk: "
-        f"t bit-equal to the plain version, refs equal up to ties, any-hit equal")
+        f"{(out['work'][1] + out['work'][2]) / max(out['live'], 1):.2f} prim tests — both walks: "
+        f"t bit-equal to the plain version, refs equal up to ties, any-hit equal; the live-ray "
+        f"walk twice bit-equal")
     if reps:
-        out["ms"] = cuda_ms(lambda: BK.bvh_closest(bvh, o, d, t_max), reps[0])
-        out["any_ms"] = cuda_ms(lambda: BK.bvh_any(bvh, o, d, t_max), reps[0])
+        # both walks in turns: by cuda_ms (back-to-back calls, the wrapper's
+        # host work included where it outlasts the kernels), the ms of the
+        # kernels line as for every kernel; and by device_ms (the card's time
+        # alone). The lane pass alone (every lane dead) by device_ms
+        closest = (lambda: BK.bvh_closest(bvh, o, d, t_max),
+                   lambda: BK.bvh_closest_per_thread(bvh, o, d, t_max))
+        any_hit = (lambda: BK.bvh_any(bvh, o, d, t_max),
+                   lambda: BK.bvh_any_per_thread(bvh, o, d, t_max))
+        out["ms"], out["thread_ms"] = turns(*closest, reps[0])
+        out["any_ms"], out["any_thread_ms"] = turns(*any_hit, reps[0])
+        out["dev_ms"], out["thread_dev_ms"] = turns(*closest, reps[0], device_ms)
+        out["any_dev_ms"], out["any_thread_dev_ms"] = turns(*any_hit, reps[0], device_ms)
+        dead = torch.zeros_like(t_max)
+        out["lane_ms"] = device_ms(lambda: BK.bvh_closest(bvh, o, d, dead), reps[0])
+        out["any_lane_ms"] = device_ms(lambda: BK.bvh_any(bvh, o, d, dead), reps[0])
         out["plain_ms"] = cuda_ms(lambda: PB.bvh_traverse(bvh, o, d, t_max), reps[1])
         out["any_plain_ms"] = cuda_ms(lambda: PB.bvh_traverse(bvh, o, d, t_max, any_hit=True),
                                       reps[1])
-        log(f"    BVH walk closest {out['ms']:.4f} ms (plain {out['plain_ms']:.3f}), any "
-            f"{out['any_ms']:.4f} ms (plain {out['any_plain_ms']:.3f})")
+        log(f"    cuda_ms: live-ray walk closest {out['ms']:.4f} ms (per-thread walk (PR 7) "
+            f"{out['thread_ms']:.4f}, plain {out['plain_ms']:.3f}), any {out['any_ms']:.4f} ms "
+            f"(per-thread {out['any_thread_ms']:.4f}, plain {out['any_plain_ms']:.3f}); "
+            f"device_ms: closest {out['dev_ms']:.4f} (per-thread {out['thread_dev_ms']:.4f}), "
+            f"any {out['any_dev_ms']:.4f} (per-thread {out['any_thread_dev_ms']:.4f}); the lane "
+            f"pass alone (every lane dead, device_ms) {out['lane_ms']:.4f} / "
+            f"{out['any_lane_ms']:.4f} ms")
     return out
 
 
@@ -1414,17 +1458,20 @@ def main() -> int:
     phases.start("10 env + bvh")
     from curry_pbrt_tpu_torch.ops import bvh as PB
     from curry_pbrt_tpu_torch.ops.kernels import bvh_kernel as BK
+    from curry_pbrt_tpu_torch.dtypes import FLOAT_MAX
     from curry_pbrt_tpu_torch.tools.env_scene import make_env_scene
 
     def bvh_alone(launches):
-        """The BVH walk launched (closest and any hit), no other kernel."""
+        """The live-ray BVH walk launched (closest and any hit), no other
+        kernel (the per-thread BVH walk included)."""
         need = ("bvh_closest", "bvh_any")
         return min(launches[k] for k in need) > 0 and not any(
             v for k, v in launches.items() if k not in need)
 
-    # (a) the walk against its plain version: a soup of 5k triangles and 64
-    # rotated, scaled spheres, and the sphere field's BVH, at 32k rays with
-    # dead lanes, and a batch whose t_max is each ray's hit t
+    # (a) both walks against their plain version: a soup of 5k triangles and
+    # 64 rotated, scaled spheres, and the sphere field's BVH, at 32k rays
+    # with dead lanes, a batch whose t_max is each ray's hit t, an all-dead
+    # and an all-live batch; both walks' ms in turns
     t0 = time.time()
     soup = bvh_soup(5000, 64, seed=1)
     soup_bvh = PB.device_bvh(PB.build_flat_bvh(soup), soup.tris, soup.spheres, dev)
@@ -1434,10 +1481,14 @@ def main() -> int:
     for bname, b, spread in (("soup5k+64 spheres", soup_bvh, 9.0),
                              ("spherefield10k", field_bvh, 45.0)):
         rays = make_rays(1 << 15, 90, (0, 0, 0), spread, dev)
-        check_bvh(f"{bname}/32768", b, rays, reps=(20, 2))
+        st = check_bvh(f"{bname}/32768", b, rays, reps=(20, 2))
+        log(f"    bounds: closest {bvh_bound(st, False)}, any {bvh_bound(st, True)} (ms, by)")
         t_p, r_p = PB.bvh_traverse(b, *rays)
         check_bvh(f"{bname}/32768 t_max = hit t", b,
                   (rays[0], rays[1], torch.where(r_p >= 0, t_p, rays[2])))
+        check_bvh(f"{bname}/32768 all dead", b, (rays[0], rays[1], torch.zeros_like(rays[2])))
+        check_bvh(f"{bname}/32768 all live", b,
+                  (rays[0], rays[1], torch.where(rays[2] > 0, rays[2], float(FLOAT_MAX))))
 
     # (b) the sphere field and mesh10k through intersector="bvh" at their
     # full bench configs, against the JAX anchors; the walk alone
@@ -1495,20 +1546,31 @@ def main() -> int:
         if seg_rel > SEG_RTOL or sum_rel > SUM_RTOL:
             raise AssertionError(f"{name} (bvh) disagrees with the JAX anchors")
         if not bvh_alone(launches):
-            raise AssertionError(f"{name} (bvh) did not run through the BVH walk alone: "
+            raise AssertionError(f"{name} (bvh) did not run through the live-ray BVH walk alone: "
                                  f"{launches}")
         del plan
     m10_bvh = bvhs["mesh10k_512"]
-    bvh_cl = check_bvh("mesh10k bvh bounce 2", m10_bvh, captured_bvh["closest"], reps=(5, 1))
+    K.reset_launches()  # the A/B's launches of the per-thread walk
+    bvh_cl = check_bvh("mesh10k bvh bounce 2", m10_bvh, captured_bvh["closest"], reps=(20, 1))
     bvh_any = check_bvh("mesh10k bvh bounce-2 shadow rays", m10_bvh, captured_bvh["any"],
-                        reps=(5, 1))
+                        reps=(20, 1))
+    bvh_ab_launches = dict(K.LAUNCHES)
+    m10_launches = bvh_runs["mesh10k_512"]["launches"]
     bvh_cl_b, bvh_any_b = bvh_bound(bvh_cl, False), bvh_bound(bvh_any, True)
-    log(f"[bounds] BVH walk at mesh10k's bvh bounce-2 shape ({bvh_cl['n']} rays, "
-        f"{bvh_cl['live']} live) on {card}: closest {bvh_cl['ms']:.4f} ms (plain "
-        f"{bvh_cl['plain_ms']:.3f}), bound {bvh_cl_b[0]:.4f} ms ({bvh_cl_b[1]}; nodes, tri, sphere "
-        f"tests {bvh_cl['work']}); shadow rays ({bvh_any['n']} rays, {bvh_any['live']} live): any "
-        f"{bvh_any['any_ms']:.4f} ms (plain {bvh_any['any_plain_ms']:.3f}), bound "
-        f"{bvh_any_b[0]:.4f} ms ({bvh_any_b[1]}; {bvh_any['any_work']})")
+    log(f"[bounds] BVH walks at mesh10k's bvh bounce-2 shape ({bvh_cl['n']} rays, "
+        f"{bvh_cl['live']} live) on {card}: closest, live-ray walk {bvh_cl['ms']:.4f} ms, "
+        f"device_ms {bvh_cl['dev_ms']:.4f} (per-thread walk (PR 7) {bvh_cl['thread_ms']:.4f}, "
+        f"device_ms {bvh_cl['thread_dev_ms']:.4f}; plain {bvh_cl['plain_ms']:.3f}), bound "
+        f"{bvh_cl_b[0]:.4f} ms ({bvh_cl_b[1]}; nodes, tri, sphere tests {bvh_cl['work']}); "
+        f"shadow rays ({bvh_any['n']} rays, {bvh_any['live']} live): any, live-ray walk "
+        f"{bvh_any['any_ms']:.4f} ms, device_ms {bvh_any['any_dev_ms']:.4f} (per-thread "
+        f"{bvh_any['any_thread_ms']:.4f}, device_ms {bvh_any['any_thread_dev_ms']:.4f}; plain "
+        f"{bvh_any['any_plain_ms']:.3f}), bound {bvh_any_b[0]:.4f} ms ({bvh_any_b[1]}; "
+        f"{bvh_any['any_work']}); per mesh10k_512 bvh pass: {m10_launches['bvh_closest']} "
+        f"closest + {m10_launches['bvh_any']} any launches of the live-ray walk, "
+        f"{m10_launches['bvh_closest_thread']} + {m10_launches['bvh_any_thread']} of the "
+        f"per-thread walk; the A/B above: {bvh_ab_launches['bvh_closest_thread']} + "
+        f"{bvh_ab_launches['bvh_any_thread']} per-thread launches")
 
     # (c) mesh10k_env_512 through the warp K1 / K2 and through the BVH walk:
     # each other's segments within 1e-4 and image sum within 1e-3; wall,
@@ -1537,7 +1599,8 @@ def main() -> int:
             f"{config_runs['mesh10k_512']['peak_gb']:.2f} GiB); launches {launches}")
         if img.shape != (ENV_CONFIG["res"],) * 2 + (3,) or not np.isfinite(img).all():
             raise AssertionError(f"mesh10k_env ({backend}): wrong shape or non-finite values")
-        alone = ran_alone(launches, "warp") and not (launches["bvh_closest"] or launches["bvh_any"]) \
+        alone = ran_alone(launches, "warp") and not any(
+            v for k, v in launches.items() if k.startswith("bvh_")) \
             if backend == "kernel" else bvh_alone(launches)
         if not alone:
             raise AssertionError(f"mesh10k_env ({backend}) did not run through its own kernels "
@@ -1586,6 +1649,7 @@ def main() -> int:
     sph_k = "curry_pbrt_tpu/ops/pallas/sphere_kernel.py"
     grp_k = "curry_pbrt_tpu/ops/pallas/intersect_group.py"
     grp_src = "curry_pbrt_tpu_torch/csrc/intersect_group.cu"
+    bsrc = "curry_pbrt_tpu_torch/csrc/bvh_walk.cu"
     # K1 / K2: the warp walk at mesh100k's bounce-2 shapes (its render path:
     # launches per pass), the per-thread walk at the headline shape (its
     # path, by the plan's rule for 8-row clusters)
@@ -1623,15 +1687,21 @@ def main() -> int:
               k4_10["any_max_abs_err"], r2["k4_any_ms"], k4_10["any_plain_ms"], k4a_b, grp_src),
         entry("slab_grid_probe", "tools/probe_slab_grid.py:34", p_launches, p_big[1], p_ms,
               p_plain_ms, p_b, "curry_pbrt_tpu_torch/csrc/slab_grid.cu"),
-        # the BVH walk (no TPU counterpart: it replaces a jnp while_loop) at
-        # mesh10k's bvh bounce-2 shapes, its launches per mesh10k_512 bvh pass
+        # the BVH walks (no TPU counterpart: they replace a jnp while_loop) at
+        # mesh10k's bvh bounce-2 shapes, their launches per mesh10k_512 bvh
+        # pass (the per-thread walk, PR 7's A/B baseline: 0)
         entry("bvh_closest_hit", "curry_pbrt_tpu/ops/bvh.py:298",
-              bvh_runs["mesh10k_512"]["launches"]["bvh_closest"], bvh_cl["max_abs_err"],
-              bvh_cl["ms"], bvh_cl["plain_ms"], bvh_cl_b, "curry_pbrt_tpu_torch/csrc/bvh_walk.cu"),
+              m10_launches["bvh_closest"], bvh_cl["max_abs_err"],
+              bvh_cl["ms"], bvh_cl["plain_ms"], bvh_cl_b, bsrc),
         entry("bvh_any_hit", "curry_pbrt_tpu/ops/bvh.py:298",
-              bvh_runs["mesh10k_512"]["launches"]["bvh_any"], bvh_any["any_max_abs_err"],
-              bvh_any["any_ms"], bvh_any["any_plain_ms"], bvh_any_b,
-              "curry_pbrt_tpu_torch/csrc/bvh_walk.cu"),
+              m10_launches["bvh_any"], bvh_any["any_max_abs_err"],
+              bvh_any["any_ms"], bvh_any["any_plain_ms"], bvh_any_b, bsrc),
+        entry("bvh_closest_hit_per_thread", "curry_pbrt_tpu/ops/bvh.py:298",
+              m10_launches["bvh_closest_thread"], bvh_cl["thread_max_abs_err"],
+              bvh_cl["thread_ms"], bvh_cl["plain_ms"], bvh_cl_b, bsrc),
+        entry("bvh_any_hit_per_thread", "curry_pbrt_tpu/ops/bvh.py:298",
+              m10_launches["bvh_any_thread"], bvh_any["any_thread_max_abs_err"],
+              bvh_any["any_thread_ms"], bvh_any["any_plain_ms"], bvh_any_b, bsrc),
     ]
     log(f"[total] chip_smoke ran {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -21,9 +21,11 @@ both of the JAX package's builders.
 
 `bvh_traverse` here is the PLAIN version of the traversal: the JAX
 package's lockstep loop over per-ray node pointers, as eager PyTorch on the
-live rays. The card runs the per-thread walk of csrc/bvh_walk.cu instead
+live rays. The card runs the live-ray walk of csrc/bvh_walk.cu instead
 (ops/kernels/bvh_kernel.py, which picks one or the other by the rays'
-device and builds the renderer's intersectors on them). The rules are the
+device and builds the renderer's intersectors on them). The walk reads each
+node as one 32-byte row of `DeviceBVH.nodes` (`pack_nodes`); the plain
+version reads the separate arrays. The rules are the
 JAX package's: the slab test of bounds.rs:303-323 (cached 1/d with d == 0 → 1e-30, sign-selected slabs, (1 + 2γ₃) on the far
 distances only, tn <= tf, tn < t_best, tf > 0); within a leaf the slots in
 order, a slot's hit accepted on strict t < t_best; an any-hit ray stops at
@@ -51,6 +53,8 @@ from curry_pbrt_tpu_torch.ops.kernels.intersect_kernel import T_SCALE, pack_tris
 
 LEAF_SIZE = 4
 END = np.int32(-1)
+NODE_COLS = 8  # DeviceBVH.nodes: bmin xyz, miss | bmax xyz, first << COUNT_BITS | count
+COUNT_BITS = 3  # count <= LEAF_SIZE < 2**COUNT_BITS
 _FMAX = float(FLOAT_MAX)
 ROW_COLS = 16  # tris16 / sph16 rows (ops/kernels/intersect_kernel, sphere_kernel)
 
@@ -122,9 +126,11 @@ def build_flat_bvh(scene) -> FlatBVH:
 
 class DeviceBVH(NamedTuple):
     """A FlatBVH and its primitives as tensors on one device: the node
-    fields as separate arrays, the primitives as 16-column rows (tris16:
-    p0, p1, p2, a ±1 valid flag; sph16: the world-to-object rotation rows,
-    its translation, the radius, a ±1 valid flag), indexed by prim_refs."""
+    fields as separate arrays (the plain version's) and as one row a node
+    (`nodes`, the kernel's; pack_nodes), the primitives as 16-column rows
+    (tris16: p0, p1, p2, a ±1 valid flag; sph16: the world-to-object
+    rotation rows, its translation, the radius, a ±1 valid flag), indexed
+    by prim_refs."""
 
     bmin: torch.Tensor  # (M,3) f32
     bmax: torch.Tensor  # (M,3) f32
@@ -136,10 +142,45 @@ class DeviceBVH(NamedTuple):
     tris16: torch.Tensor  # (max(T,1), 16) f32
     sph16: torch.Tensor  # (max(S,1), 16) f32
     n_tris: int
+    nodes: torch.Tensor  # (M, NODE_COLS) f32, pack_nodes
 
     @property
     def n_nodes(self) -> int:
         return int(self.bmin.shape[0])
+
+
+def pack_nodes(bvh: FlatBVH) -> np.ndarray:
+    """The (M, 8) float32 node rows of the live-ray walk (csrc/bvh_walk.cu),
+    32 bytes a node: words 0-3 bmin xyz and the miss link's int32 bits,
+    words 4-7 bmax xyz and the bits of first << COUNT_BITS | count (first -1
+    on an internal node). The hit link is not stored: the builder makes it
+    the next node (ptr + 1) for an internal node and the miss link for a
+    leaf piece (csrc/bvh_builder.cpp Emitter::emit), and the walk relies on
+    that. Raises ValueError where the BVH breaks it or a field does not
+    fit."""
+    m = bvh.n_nodes
+    ptr = np.arange(m, dtype=np.int64)
+    hit, miss = bvh.hit.astype(np.int64), bvh.miss.astype(np.int64)
+    first, count = bvh.first.astype(np.int64), bvh.count.astype(np.int64)
+    internal = first < 0
+    if not np.array_equal(hit[internal], ptr[internal] + 1):
+        raise ValueError("an internal node's hit link is not the next node: the node rows "
+                         "cannot drop it")
+    if not np.array_equal(hit[~internal], miss[~internal]):
+        raise ValueError("a leaf's hit link is not its miss link: the node rows cannot drop it")
+    if (first < -1).any() or (count < 0).any() or (count > LEAF_SIZE).any() or (
+            internal & (count != 0)).any():
+        raise ValueError(f"leaf ranges must be first >= -1 (-1 internal, count 0) and 0 <= "
+                         f"count <= {LEAF_SIZE}")
+    if m and first.max() >= 2 ** (31 - COUNT_BITS):
+        raise ValueError(f"first slot {int(first.max())} does not fit a node row's "
+                         f"{31 - COUNT_BITS} bits")
+    rows = np.empty((m, NODE_COLS), np.int32)
+    rows[:, 0:3] = np.ascontiguousarray(bvh.bmin, np.float32).view(np.int32)
+    rows[:, 3] = miss
+    rows[:, 4:7] = np.ascontiguousarray(bvh.bmax, np.float32).view(np.int32)
+    rows[:, 7] = (first << COUNT_BITS) | count
+    return rows.view(np.float32)
 
 
 def pack_rows(tris, spheres):
@@ -169,7 +210,7 @@ def device_bvh(bvh: FlatBVH, tris, spheres, device) -> DeviceBVH:
 
     return DeviceBVH(as_t(bvh.bmin), as_t(bvh.bmax), as_t(bvh.hit), as_t(bvh.miss),
                      as_t(bvh.first), as_t(bvh.count), as_t(bvh.prim_refs), as_t(tris16),
-                     as_t(sph16), int(bvh.n_tris))
+                     as_t(sph16), int(bvh.n_tris), as_t(pack_nodes(bvh)))
 
 
 # ---------------------------------------------------------------------------

@@ -119,10 +119,16 @@ ENTRY_POINTS = {
     "curry_tri_any_hit_groups": _TABLE_ARGS + [_P] * 2,
     # slab_grid.cu: tab, rays, slabs; n_slabs, slab_rows, block_rays, n; out, stream
     "curry_slab_grid": [_P] * 3 + [_I] * 4 + [_P] * 2,
-    # bvh_walk.cu: o, d, t_max, bmin, bmax, hit, miss, first, count, refs,
-    # tris16, sph16; n, n_tris; g2, g3, g5, t_scale; t_out, ref_out / hit_out; stream
-    "curry_bvh_closest_hit": [_P] * 12 + [_I] * 2 + [_F] * 4 + [_P] * 3,
-    "curry_bvh_any_hit": [_P] * 12 + [_I] * 2 + [_F] * 4 + [_P] * 2,
+    # bvh_walk.cu, the live-ray walk: o, d, t_max, nodes, refs, tris16, sph16;
+    # n, n_tris; g2, g3, g5, t_scale; live, n_live; t_out, ref_out / hit_out;
+    # stream
+    "curry_bvh_closest_hit": [_P] * 7 + [_I] * 2 + [_F] * 4 + [_P] * 5,
+    "curry_bvh_any_hit": [_P] * 7 + [_I] * 2 + [_F] * 4 + [_P] * 4,
+    # bvh_walk.cu, the per-thread walk: o, d, t_max, bmin, bmax, hit, miss,
+    # first, count, refs, tris16, sph16; n, n_tris; g2, g3, g5, t_scale;
+    # t_out, ref_out / hit_out; stream
+    "curry_bvh_closest_hit_per_thread": [_P] * 12 + [_I] * 2 + [_F] * 4 + [_P] * 3,
+    "curry_bvh_any_hit_per_thread": [_P] * 12 + [_I] * 2 + [_F] * 4 + [_P] * 2,
 }
 
 

@@ -61,13 +61,13 @@ USE_SUPERS_MIN = 96  # enable the super-cluster level beyond this many clusters
 
 # Kernel launches per wrapper since the last reset (plain-version calls on
 # CPU tensors are not launches and are not counted). tri_* / sphere_*: the
-# warp walk; *_thread: the per-thread walk.
+# warp walk; bvh_*: the live-ray BVH walk; *_thread: the per-thread walks.
 LAUNCHES = {"tri_closest": 0, "tri_closest_stats": 0, "tri_any": 0,
             "tri_closest_thread": 0, "tri_closest_stats_thread": 0, "tri_any_thread": 0,
             "sphere_closest": 0, "sphere_any": 0, "sphere_closest_thread": 0,
             "sphere_any_thread": 0,
             "tri_closest_group": 0, "tri_any_group": 0, "slab_grid": 0,
-            "bvh_closest": 0, "bvh_any": 0}
+            "bvh_closest": 0, "bvh_any": 0, "bvh_closest_thread": 0, "bvh_any_thread": 0}
 
 WARP = 32
 # Tables of up to this many rows a cluster keep the per-thread walk: on the

@@ -117,11 +117,29 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def turns(fa, fb, reps: int):
-    """(ms of fa, ms of fb), each the mean of two cuda_ms runs timed in
-    turns a, b, b, a: two versions compared inside one call, on one card."""
-    a1, b1 = cuda_ms(fa, reps), cuda_ms(fb, reps)
-    b2, a2 = cuda_ms(fb, reps), cuda_ms(fa, reps)
+def device_ms(fn, reps: int) -> float:
+    """Mean ms of fn() over reps launches, the card's time alone: a spin
+    kernel (about 1 ms a launch) holds the stream while the host queues the
+    launches, so the events do not count host work between them, which
+    cuda_ms does where a call's host side outlasts its kernels. fn must not
+    synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(2_000_000 * reps)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def turns(fa, fb, reps: int, timer=cuda_ms):
+    """(ms of fa, ms of fb), each the mean of two timer runs timed in turns
+    a, b, b, a: two versions compared inside one call, on one card."""
+    a1, b1 = timer(fa, reps), timer(fb, reps)
+    b2, a2 = timer(fb, reps), timer(fa, reps)
     return (a1 + a2) / 2, (b1 + b2) / 2
 
 

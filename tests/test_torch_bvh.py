@@ -413,3 +413,179 @@ def test_oversize_leaves_chain_as_jax(builder, monkeypatch):
               and (bvh.bmin[i] == bvh.bmin[i + 1]).all() and bvh.count[i] == PB.LEAF_SIZE]
     assert len(pieces) >= 2
     assert_arrays_equal_jax(bvh, jax_build(jax_tri_scene(p0, p1, p2), builder, monkeypatch))
+
+
+# ---------------------------------------------------------------------------
+# the node rows of the live-ray walk (ops/bvh.py pack_nodes)
+
+
+def _mesh10k_subsample(scene):
+    """Every third triangle of mesh10k and its spheres."""
+    t = scene.tris
+    sub = isect.TriangleArrays(*(np.ascontiguousarray(np.asarray(a)[::3])
+                                 for a in (t.p0, t.p1, t.p2, t.prim)))
+    return type("S", (), {"tris": sub, "spheres": scene.spheres})()
+
+
+@pytest.fixture(scope="module")
+def flat_bvhs():
+    """The builder's BVH of cornell, spheres, the sphere field and a mesh10k
+    subsample."""
+    def compiled(name):
+        return compile_scene_file(REPO / "scenes" / f"{name}.pbrt",
+                                  overrides={"resolution": (8, 8), "spp": 1})
+
+    scenes = {name: compiled(name) for name in ("cornell", "spheres", "spherefield10k")}
+    scenes["mesh10k/3"] = _mesh10k_subsample(compiled("mesh10k"))
+    return {name: (sc, PB.build_flat_bvh(sc)) for name, sc in scenes.items()}
+
+
+def _unpack_nodes(rows):
+    """(bmin, bmax, miss, first, count) of (M, 8) node rows, as the walk of
+    csrc/bvh_walk.cu decodes them."""
+    bits = np.asarray(rows, np.float32).view(np.int32)
+    packed = bits[:, 7]
+    return (rows[:, 0:3], rows[:, 4:7], bits[:, 3], packed >> PB.COUNT_BITS,
+            packed & ((1 << PB.COUNT_BITS) - 1))
+
+
+SCENES = ["cornell", "spheres", "spherefield10k", "mesh10k/3"]
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_node_rows_round_trip(flat_bvhs, name):
+    """The rows give back bounds (bit for bit), miss links and leaf ranges;
+    device_bvh carries them as an (M, 8) float32 tensor."""
+    sc, flat = flat_bvhs[name]
+    rows = PB.pack_nodes(flat)
+    assert rows.dtype == np.float32 and rows.shape == (flat.n_nodes, PB.NODE_COLS)
+    bmin, bmax, miss, first, count = _unpack_nodes(rows)
+    np.testing.assert_array_equal(bmin.view(np.int32), flat.bmin.view(np.int32))
+    np.testing.assert_array_equal(bmax.view(np.int32), flat.bmax.view(np.int32))
+    np.testing.assert_array_equal(miss, flat.miss)
+    np.testing.assert_array_equal(first, flat.first)
+    np.testing.assert_array_equal(count, flat.count)
+    dev = PB.device_bvh(flat, sc.tris, sc.spheres, "cpu")
+    assert dev.nodes.dtype == torch.float32
+    np.testing.assert_array_equal(dev.nodes.numpy().view(np.int32), rows.view(np.int32))
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_builder_hit_links_are_implied(flat_bvhs, name):
+    """The hit link the rows drop: the next node for an internal node, the
+    miss link for a leaf piece."""
+    _, flat = flat_bvhs[name]
+    internal = flat.first < 0
+    assert internal.any() or flat.n_nodes == 1
+    implied = np.where(internal, np.arange(flat.n_nodes) + 1, flat.miss)
+    np.testing.assert_array_equal(flat.hit, implied)
+
+
+def _tiny_flat(**changes):
+    """A hand-made three-node BVH: a root over two leaves (slots 0-1, 2-4)."""
+    flat = PB.FlatBVH(bmin=np.zeros((3, 3), np.float32), bmax=np.ones((3, 3), np.float32),
+                      hit=np.array([1, 2, -1], np.int32), miss=np.array([-1, 2, -1], np.int32),
+                      first=np.array([-1, 0, 2], np.int32), count=np.array([0, 2, 3], np.int32),
+                      prim_refs=np.arange(5, dtype=np.int32), n_tris=5)
+    return flat._replace(**{k: np.asarray(v, np.int32) for k, v in changes.items()})
+
+
+@pytest.mark.parametrize("changes,match", [
+    (dict(hit=[2, 2, -1]), "internal node's hit link"),
+    (dict(hit=[1, -1, -1]), "leaf's hit link"),
+    (dict(first=[-1, 0, 2 ** 28]), "does not fit"),
+    (dict(count=[0, 2, PB.LEAF_SIZE + 1]), "count"),
+])
+def test_pack_nodes_raises(changes, match):
+    PB.pack_nodes(_tiny_flat())  # the unchanged BVH packs
+    with pytest.raises(ValueError, match=match):
+        PB.pack_nodes(_tiny_flat(**changes))
+
+
+def test_leaf_pieces_of_count_zero_and_leaf_size_pack():
+    """An empty leaf piece (count 0: the empty scene's one node) and full
+    pieces (count LEAF_SIZE: eleven copies of one triangle, chained 4, 4, 3)
+    decode to their own ranges; the largest first that fits packs too."""
+    z = np.zeros((0, 3), np.float32)
+    empty = PB.build_flat_bvh(_FakeScene(z, z, z))
+    _, _, miss, first, count = _unpack_nodes(PB.pack_nodes(empty))
+    assert (miss[0], first[0], count[0]) == (-1, 0, 0)
+    one = np.random.default_rng(11).uniform(-1, 1, (3, 3)).astype(np.float32)
+    p0, p1, p2 = (np.ascontiguousarray(np.repeat(one[None, k], 11, axis=0)) for k in range(3))
+    chained = PB.build_flat_bvh(_FakeScene(p0, p1, p2))
+    assert (chained.count == PB.LEAF_SIZE).sum() == 2
+    _, _, miss, first, count = _unpack_nodes(PB.pack_nodes(chained))
+    np.testing.assert_array_equal(count, chained.count)
+    np.testing.assert_array_equal(first, chained.first)
+    np.testing.assert_array_equal(miss, chained.miss)
+    big = _tiny_flat(first=[-1, 2 ** 28 - 1, 2])
+    _, _, _, first, count = _unpack_nodes(PB.pack_nodes(big))
+    assert first[1] == 2 ** 28 - 1 and count[1] == 2
+
+
+def _row_walk(bvh, o, d, t_max, any_hit=False):
+    """The walk of csrc/bvh_walk.cu over the node rows alone, as a plain
+    lockstep loop: the hit link of an entered internal node is ptr + 1, any
+    other step follows the row's miss link."""
+    rows = bvh.nodes
+    bits = rows.view(torch.int32)
+    t_out, ref_out = t_max.clone(), torch.full(t_max.shape, -1, dtype=torch.int32)
+    inv_d = 1.0 / torch.where(d == 0, float(np.float32(1e-30)), d)
+    shear = isect.ray_shear(d)
+    lane = torch.nonzero(t_max > 0).squeeze(1)
+    ptr = torch.zeros(lane.shape, dtype=torch.int64)
+    while lane.numel():
+        row, b = rows[ptr], bits[ptr]
+        first, count = b[:, 7] >> PB.COUNT_BITS, b[:, 7] & ((1 << PB.COUNT_BITS) - 1)
+        t_best, ref_best = t_out[lane], ref_out[lane]
+        enter = PB._slab_test(row[:, 0:3], row[:, 4:7], o[lane], inv_d[lane], d[lane] < 0, t_best)
+        for k in range(PB.LEAF_SIZE):
+            at = torch.nonzero(enter & (first >= 0) & (k < count)).squeeze(1)
+            if at.numel() == 0:
+                break
+            ref = bvh.prim_refs[(first[at] + k).long()]
+            t_k, ok = PB._leaf_prim_test(bvh, ref, o[lane[at]], d[lane[at]],
+                                         tuple(x[lane[at]] for x in shear), t_best[at])
+            better = ok & (t_k < t_best[at])
+            t_best[at] = torch.where(better, t_k, t_best[at])
+            ref_best[at] = torch.where(better, ref, ref_best[at])
+        nxt = torch.where(enter & (first < 0), ptr + 1, b[:, 3].long())
+        if any_hit:
+            nxt = torch.where(ref_best >= 0, -1, nxt)
+        t_out[lane], ref_out[lane] = t_best, ref_best
+        go = nxt >= 0
+        lane, ptr = lane[go], nxt[go]
+    return t_out, ref_out
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("name", ["spherefield10k", "mesh10k/3"])
+def test_walk_over_node_rows_is_the_plain_traversal(flat_bvhs, name, any_hit):
+    """The rows alone, decoded as the kernel decodes them, walk every ray as
+    the plain version over the separate arrays does: t bit-equal, refs
+    equal, with dead lanes."""
+    sc, flat = flat_bvhs[name]
+    bvh = PB.device_bvh(flat, sc.tris, sc.spheres, "cpu")
+    lo, hi = flat.bmin.min(axis=0), flat.bmax.max(axis=0)
+    rng = np.random.default_rng(8)
+    o = rng.uniform(lo, hi, (512, 3)).astype(np.float32)
+    d = rng.normal(0, 1, (512, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t_max = np.full(512, FLOAT_MAX, np.float32)
+    t_max[::4] = 0.0
+    o, d, t_max = map(torch.from_numpy, (o, d, t_max))
+    t_r, ref_r = _row_walk(bvh, o, d, t_max, any_hit)
+    t_p, ref_p = PB.bvh_traverse(bvh, o, d, t_max, any_hit=any_hit)
+    assert int((ref_p >= 0).sum()) > 50
+    assert torch.equal(t_r.view(torch.int32), t_p.view(torch.int32))
+    assert torch.equal(ref_r, ref_p)
+
+
+def test_wrappers_check_the_node_rows():
+    _, ps = both_scenes(3, 50, 5)
+    bvh, _ = intersectors(ps)
+    o, d, t_max = map(torch.from_numpy, random_rays(16, 3))
+    with pytest.raises(ValueError, match="node rows"):
+        BK.bvh_closest(bvh._replace(nodes=bvh.nodes[:, :6]), o, d, t_max)
+    with pytest.raises(TypeError, match="node rows"):
+        BK.bvh_any(bvh._replace(nodes=bvh.nodes.double()), o, d, t_max)
