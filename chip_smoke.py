@@ -10,20 +10,21 @@ non-zero and no result line is printed:
   2. build   — compiles csrc/*.cu with nvcc (sm_90a, -fmad=false; one nvcc
                per source, all started together) and prints the build time
                and ptxas' register report;
-  3. kernels — the closest-hit (K1) and any-hit (K2) kernels, through both
-               walks — the warp walk (csrc/intersect_warp.cu) and the
-               per-thread walk (csrc/intersect.cu) — against their plain
-               PyTorch versions and each other on the card: cornell_tex
-               tables (block_t 8, one slab) and a 5k-triangle soup (block_t
-               64, supers, 5 slabs, a NaN padding cluster), 32k and 1M rays
-               with dead lanes, the render path's chunk shape, a batch whose
-               t_max is each ray's exact hit t (the first-hit-at-t_max rule)
-               and one with ~90% dead lanes at the chunk shape. Hit masks
-               must be equal, rows up to exact-t ties, t bit-equal — the
-               build's -fmad=false is what makes that hold; both walks' ms
-               in turns (the launch plan keeps the per-thread walk at
-               block_t 8, and the line says whether it still measures
-               faster there);
+  3. kernels — the closest-hit (K1) and any-hit (K2) kernels, through the
+               warp walk (csrc/intersect_warp.cu), the per-thread walk
+               (csrc/intersect.cu) and, on the cornell_tex tables, the
+               small-table walk (csrc/intersect_small.cu) — against their
+               plain PyTorch versions and each other on the card:
+               cornell_tex tables (block_t 8, one slab) and a 5k-triangle
+               soup (block_t 64, supers, 5 slabs, a NaN padding cluster),
+               32k and 1M rays with dead lanes, the render path's chunk
+               shape, a batch whose t_max is each ray's exact hit t (the
+               first-hit-at-t_max rule) and one with ~90% dead lanes at the
+               chunk shape (each table set). Hit masks must be equal, rows
+               up to exact-t ties (the small walk's equal to the per-thread
+               walk's), t bit-equal — the build's -fmad=false is what makes
+               that hold; the warp and the small walk's ms each in turns
+               with the per-thread walk's, K1b's too at the headline shape;
   3b. spheres— the sphere kernels (K3, closest and any hit) through both
                walks — the warp walk (csrc/intersect_warp.cu), which the
                launch plan picks for the 64-row sphere tables, and the
@@ -36,20 +37,24 @@ non-zero and no result line is printed:
                that start on a sphere's surface (hits at t = -0.0); masks
                and any-hit equal, t bit-equal (sign bit included), spheres
                equal up to exact-t ties; both walks' ms in turns;
-  3c. stats  — K1 with stats=True, both walks, against the plain version's
-               stats on the triangle soup and the mesh100k tables: per-ray
-               (entered, improved) counts equal, (t, row) unchanged by stats;
+  3c. stats  — K1 with stats=True, the warp and per-thread walks (and the
+               small walk on cornell_tex), against the plain version's
+               stats on the triangle soup, the mesh100k and the cornell_tex
+               tables: per-ray (entered, improved) counts equal, (t, row)
+               unchanged by stats;
   4. slice   — cornell_tex at 32², 4 spp, depth 3 through render_scene on
                the card, against tests/goldens/cornell_tex.npy under the CPU
                slice test's tolerance, and against the port's own CPU
                render (plain versions); the K1 / K2 walk of the path's
-               launch plan must have launched, the other walk and the plain
-               versions not;
-  5. headline— cornell_tex at 512², 64 spp, depth 5: a warm-up pass, then a
-               timed pass whose launch counts are reported; traced segments
-               and the image sum against the JAX anchors (155,670,944 within
-               1e-4 relative; 86446.0 within 1e-3 relative), and the plan's
-               walk alone, as in phase 4;
+               launch plan (the small walk at block_t 8) must have launched,
+               the other walks and the plain versions not;
+  5. headline— cornell_tex at 512², 64 spp, depth 5: a warm-up pass of the
+               headline itself, whose first chunk's K1 / K2 inputs (11
+               closest and 5 any calls, ~1.9 GB) are captured for phase 7,
+               then a timed pass whose launch counts are reported; traced
+               segments and the image sum against the JAX anchors
+               (155,670,944 within 1e-4 relative; 86446.0 within 1e-3
+               relative), and the plan's walk alone, as in phase 4;
   6. configs — spheres_direct_256 (the direct-lighting integrator),
                spherefield10k_256, mesh10k_512, mesh100k_512 and
                mesh600k_256 at their full bench configs: each planned once
@@ -64,14 +69,20 @@ non-zero and no result line is printed:
                the card; spheres_direct_256 (no triangle, 4 spheres: the
                dense sphere test) must launch no traversal kernel at all;
   7. bounds  — the kernels at the paths' own shapes, on rays captured from
-               the warm-up passes of phase 6 (every K3 launch of one
-               sphere-field pass: 7 closest and 3 any hit, 262,144 rays
-               each; a mesh10k and a mesh100k bounce 2 with its shadow rays;
-               each shape's live lanes printed): both walks' and the plain
-               ms, and the least time the card could take (bytes or
-               operations, from the live lanes and the entered-tile counts
-               of K1's stats and of the plain versions); K3's per-pass sum
-               for each walk;
+               the warm-up passes of phases 5 and 6 (every K1 / K2 call of
+               one headline chunk: 11 closest and 5 any hit, 4,194,304 rays
+               each, through the small and the per-thread walks — t
+               bit-equal to the plain version, rows equal between the walks,
+               the small K1b's stats equal to the plain stats, any-hit
+               equal — by cuda_ms and device_ms, and their per-pass sums,
+               which say whether the plan's walk at block_t 8 is the faster;
+               every K3 launch of one sphere-field pass: 7 closest and 3 any
+               hit, 262,144 rays each; a mesh10k and a mesh100k bounce 2
+               with its shadow rays; each shape's live lanes printed): both
+               walks' and the plain ms, and the least time the card could
+               take (bytes or operations, from the live lanes and the
+               entered-tile counts of K1's stats and of the plain versions);
+               K3's per-pass sum for each walk;
   8. probes  — the traversal-analysis path (curry_pbrt_tpu_torch/tools/):
                the group kernel K4 (closest and any hit) against its plain
                version and against K1 / K2 on the phase-3 soup at 32k rays
@@ -101,7 +112,7 @@ non-zero and no result line is printed:
                and the peak device memory; (d) d image-sum / d light_L[0,0]
                at full width against a central difference (rtol 2e-2);
                (e) the launches of (c): the plan's K1 / K2 walk alone (the
-               per-thread walk at block_t 8), no plain version on the card;
+               small walk at block_t 8), no plain version on the card;
   10. env + bvh — the environment light and the flat BVH: (a) both BVH
                walks of csrc/bvh_walk.cu (closest and any hit) — the
                live-ray walk of the render path, launched twice (bit-equal),
@@ -338,12 +349,24 @@ def hold_any(name, h_k, h_ref, t_max, what):
         raise AssertionError(f"{name}: a dead lane (t_max 0) reported an any hit ({what})")
 
 
-def check_kernels(name, tables, rays, K, plain, timing: bool):
-    """K1 / K2 through both walks — the warp walk (csrc/intersect_warp.cu)
-    and the per-thread walk (csrc/intersect.cu), whatever the plan picks for
-    these tables — against the plain versions and against each other on one
-    table set and ray batch; with timing, both walks' ms in turns and the
-    plain versions' ms."""
+def hold_small(name, t_s, r_s, t_t, r_t, what):
+    """The small-table walk's (t, row) against the per-thread walk's: each
+    ray makes the same tests in the same order, so both are equal, t to the
+    bit and rows exactly (no tie allowance)."""
+    import torch
+
+    if not (torch.equal(t_s.view(torch.int32), t_t.view(torch.int32)) and torch.equal(r_s, r_t)):
+        raise AssertionError(f"{name}: {what}: (t, row) differ on "
+                             f"{int(((t_s != t_t) | (r_s != r_t)).sum())} rays")
+
+
+def check_kernels(name, tables, rays, K, plain, timing: bool, small: bool = False):
+    """K1 / K2 through the walks — the warp walk (csrc/intersect_warp.cu),
+    the per-thread walk (csrc/intersect.cu) and, with small, the small-table
+    walk (csrc/intersect_small.cu), whatever the plan picks for these tables
+    — against the plain versions and against each other on one table set and
+    ray batch; with timing, the warp and the small walk's ms each in turns
+    with the per-thread walk's, and the plain versions' ms."""
     import torch
 
     o, d, t_max = rays
@@ -354,6 +377,9 @@ def check_kernels(name, tables, rays, K, plain, timing: bool):
     h_w = K.tri_any_hit_warp(*args, **kw)
     t_t, r_t = K.tri_closest_hit_thread(*args, **kw)
     h_t = K.tri_any_hit_thread(*args, **kw)
+    if small:
+        t_s, r_s = K.tri_closest_hit_small(*args, **kw)
+        h_s = K.tri_any_hit_small(*args, **kw)
     torch.cuda.synchronize()
     t_p, r_p = plain["closest"](*args, **kw)
     h_p = plain["any"](*args, **kw)
@@ -362,14 +388,22 @@ def check_kernels(name, tables, rays, K, plain, timing: bool):
     hold_closest(name, tables, rays, t_w, r_w, t_t, r_t, "warp K1 vs per-thread K1")
     hold_any(name, h_w, h_p, t_max, "warp K2 vs plain")
     hold_any(name, h_w, h_t, t_max, "warp K2 vs per-thread K2")
+    if small:
+        hold_closest(name, tables, rays, t_s, r_s, t_p, r_p, "small K1 vs plain")
+        hold_small(name, t_s, r_s, t_t, r_t, "small K1 vs per-thread K1")
+        hold_any(name, h_s, h_p, t_max, "small K2 vs plain")
     hit = r_w >= 0
+    walks = "warp, small and per-thread walks" if small else "warp and per-thread walks"
     log(f"  {name}: {n} rays ({int((t_max > 0).sum())} live), {int(hit.sum())} closest hits, "
-        f"{int(h_w.sum())} any hits, {ties} tie rows — warp and per-thread walks: masks equal, "
-        f"t bit-equal to the plain version and to each other, rows equal up to ties, K2 equal")
+        f"{int(h_w.sum())} any hits, {ties} tie rows — {walks}: masks equal, t bit-equal to the "
+        f"plain version and to each other, rows equal up to ties (small and per-thread: equal), "
+        f"K2 equal")
     err = lambda t: (t[hit] - t_p[hit]).abs().max().item() if hit.any() else 0.0  # noqa: E731
     any_err = lambda h: (h.float() - h_p.float()).abs().max().item() if n else 0.0  # noqa: E731
     out = {"max_abs_err": err(t_w), "thread_max_abs_err": err(t_t),
            "any_max_abs_err": any_err(h_w), "any_thread_max_abs_err": any_err(h_t)}
+    if small:
+        out["small_max_abs_err"], out["any_small_max_abs_err"] = err(t_s), any_err(h_s)
     if timing:
         out["closest_thread_ms"], out["closest_ms"] = turns(
             lambda: K.tri_closest_hit_thread(*args, **kw),
@@ -377,11 +411,22 @@ def check_kernels(name, tables, rays, K, plain, timing: bool):
         out["any_thread_ms"], out["any_ms"] = turns(
             lambda: K.tri_any_hit_thread(*args, **kw),
             lambda: K.tri_any_hit_warp(*args, **kw), 20)
+        if small:
+            out["closest_thread_vs_small_ms"], out["closest_small_ms"] = turns(
+                lambda: K.tri_closest_hit_thread(*args, **kw),
+                lambda: K.tri_closest_hit_small(*args, **kw), 20)
+            out["any_thread_vs_small_ms"], out["any_small_ms"] = turns(
+                lambda: K.tri_any_hit_thread(*args, **kw),
+                lambda: K.tri_any_hit_small(*args, **kw), 20)
         out["closest_plain_ms"] = cuda_ms(lambda: plain["closest"](*args, **kw), 3)
         out["any_plain_ms"] = cuda_ms(lambda: plain["any"](*args, **kw), 3)
         log(f"    K1 warp {out['closest_ms']:.4f} ms, per-thread {out['closest_thread_ms']:.4f} "
             f"(plain {out['closest_plain_ms']:.3f}); K2 warp {out['any_ms']:.4f} ms, per-thread "
             f"{out['any_thread_ms']:.4f} (plain {out['any_plain_ms']:.3f})")
+        if small:
+            log(f"    K1 small {out['closest_small_ms']:.4f} ms, per-thread "
+                f"{out['closest_thread_vs_small_ms']:.4f}; K2 small {out['any_small_ms']:.4f} ms, "
+                f"per-thread {out['any_thread_vs_small_ms']:.4f} (in turns)")
     return out
 
 
@@ -485,10 +530,12 @@ def check_sphere_kernels(name, tables, rays, S, plain, reps=(20, 3), timed=("clo
     return out
 
 
-def check_stats(name, tables, rays, K, plain, reps=None):
-    """K1 stats=True through both walks vs the plain version's stats (and t
-    bit-equal to it); returns the entered-tile sum and, with reps, both
-    walks' times with and without stats (in turns) and the plain ones."""
+def check_stats(name, tables, rays, K, plain, reps=None, small=False):
+    """K1 stats=True through the warp and per-thread walks (and, with small,
+    the small-table walk) vs the plain version's stats (and t bit-equal to
+    it); returns the entered-tile sum and, with reps, the warp walk's times
+    (the small walk's, with small) with and without stats in turns with the
+    per-thread walk's, and the plain ones."""
     import torch
 
     o, d, t_max = rays
@@ -498,8 +545,11 @@ def check_stats(name, tables, rays, K, plain, reps=None):
     hit = r_p >= 0
     err = lambda t: (t[hit] - t_p[hit]).abs().max().item() if hit.any() else 0.0  # noqa: E731
     errs = {}
-    for walk, fn, sfx in (("warp", K.tri_closest_hit_warp, ""),
-                          ("per-thread", K.tri_closest_hit_thread, "thread_")):
+    walks = [("warp", K.tri_closest_hit_warp, ""),
+             ("per-thread", K.tri_closest_hit_thread, "thread_")]
+    if small:
+        walks.append(("small", K.tri_closest_hit_small, "small_"))
+    for walk, fn, sfx in walks:
         t0, r0 = fn(*args, **kw)
         t1, r1, ent_k, imp_k = fn(*args, **kw, stats=True)
         torch.cuda.synchronize()
@@ -517,14 +567,15 @@ def check_stats(name, tables, rays, K, plain, reps=None):
            "block": kw["block_t"], **errs}
     log(f"  {name}: {o.shape[0]} rays ({out['live']} live), entered tiles {out['entered']} "
         f"({out['entered'] / o.shape[0]:.2f}/ray of {tables.caabb.shape[0]} clusters), "
-        f"improved {out['improved']} — warp and per-thread stats equal to the plain stats, "
-        f"t bit-equal, (t, row) unchanged by stats")
+        f"improved {out['improved']} — {', '.join(w for w, _, _ in walks)} stats equal to the "
+        f"plain stats, t bit-equal, (t, row) unchanged by stats")
     if reps:
+        fn = K.tri_closest_hit_small if small else K.tri_closest_hit_warp
         out["thread_ms"], out["ms"] = turns(lambda: K.tri_closest_hit_thread(*args, **kw),
-                                            lambda: K.tri_closest_hit_warp(*args, **kw), reps[0])
+                                            lambda: fn(*args, **kw), reps[0])
         out["stats_thread_ms"], out["stats_ms"] = turns(
             lambda: K.tri_closest_hit_thread(*args, **kw, stats=True),
-            lambda: K.tri_closest_hit_warp(*args, **kw, stats=True), reps[0])
+            lambda: fn(*args, **kw, stats=True), reps[0])
         out["plain_ms"] = cuda_ms(lambda: plain["closest"](*args, **kw), reps[1])
         out["stats_plain_ms"] = cuda_ms(lambda: plain["closest"](*args, **kw, stats=True),
                                         reps[1])
@@ -556,6 +607,59 @@ def check_any(name, tables, rays, K, plain, reps):
     log(f"  {name}: {out['n']} rays ({out['live']} live), {out['hits']} any hits, "
         f"{out['any_entered']} entered tiles (plain) — warp and per-thread K2 equal to the plain "
         f"version")
+    return out
+
+
+def check_head_call(name, tables, rays, K, plain, kind, reps):
+    """One K1 (kind "closest") or K2 ("any") call captured from the
+    headline's pass, through the small-table and the per-thread walks: t
+    bit-equal to the plain version's, rows equal to the per-thread walk's
+    (to the plain version's up to exact-t ties), K1b's stats equal to the
+    plain stats, any-hit equal to the plain version's. Both walks' ms in
+    turns, by CUDA events around back-to-back calls (cuda_ms) and by the
+    card's time alone (device_ms); the plain version's ms; the bound from
+    the plain version's entered tiles."""
+    import torch
+
+    o, d, t_max = rays
+    n, live = o.shape[0], int((t_max > 0).sum())
+    args = (o, d, t_max, tables.tris16, tables.caabb, tables.saabb, tables.slab_aabb)
+    kw = tables.kw
+    small, thread = ((K.tri_closest_hit_small, K.tri_closest_hit_thread) if kind == "closest"
+                     else (K.tri_any_hit_small, K.tri_any_hit_thread))
+    out = {"n": n, "live": live, "table_bytes": table_bytes(*args[3:]), "block": kw["block_t"]}
+    if kind == "closest":
+        t_s, r_s = small(*args, **kw)
+        t_b, r_b, ent_s, imp_s = small(*args, **kw, stats=True)
+        t_t, r_t = thread(*args, **kw)
+        torch.cuda.synchronize()
+        t_p, r_p, ent_p, imp_p = plain["closest"](*args, **kw, stats=True)
+        hold_closest(name, tables, rays, t_s, r_s, t_p, r_p, "small K1 vs plain")
+        hold_small(name, t_s, r_s, t_t, r_t, "small K1 vs per-thread K1")
+        hold_small(name, t_b, r_b, t_s, r_s, "small K1b vs small K1")
+        if not (torch.equal(ent_s, ent_p) and torch.equal(imp_s, imp_p)):
+            raise AssertionError(f"{name}: small K1b stats differ from the plain stats")
+        hit = r_s >= 0
+        out["entered"], out["hits"] = int(ent_p.sum()), int(hit.sum())
+        out["max_abs_err"] = (t_s[hit] - t_p[hit]).abs().max().item() if hit.any() else 0.0
+        out["bound"] = bound(n, live, 8, out["table_bytes"], out["entered"], out["block"],
+                             TRI_TEST_OPS)
+    else:
+        h_s = small(*args, **kw)
+        h_t = thread(*args, **kw)
+        torch.cuda.synchronize()
+        h_p, ent_p = plain["any"](*args, **kw, stats=True)
+        hold_any(name, h_s, h_p, t_max, "small K2 vs plain")
+        hold_any(name, h_t, h_p, t_max, "per-thread K2 vs plain")
+        out["entered"], out["hits"] = int(ent_p.sum()), int(h_s.sum())
+        out["max_abs_err"] = (h_s.float() - h_p.float()).abs().max().item() if n else 0.0
+        out["bound"] = bound(n, live, 1, out["table_bytes"], out["entered"], out["block"],
+                             TRI_TEST_OPS)
+    out["thread_ms"], out["ms"] = turns(lambda: thread(*args, **kw), lambda: small(*args, **kw),
+                                        reps)
+    out["thread_dev_ms"], out["dev_ms"] = turns(lambda: thread(*args, **kw),
+                                                lambda: small(*args, **kw), reps, device_ms)
+    out["plain_ms"] = cuda_ms(lambda: plain[kind](*args, **kw), 1)
     return out
 
 
@@ -840,7 +944,7 @@ def main() -> int:
     for n in (1 << 15, 1 << 20, chunk):
         timings[("cornell", n)] = check_kernels(
             f"cornell_tex/{n}", ctab, make_rays(n, 10 + n % 97, box_c, 280.0, dev), K, plain,
-            timing=True)
+            timing=True, small=True)
         if n < chunk:
             timings[("soup", n)] = check_kernels(
                 f"soup5k/{n}", stab, make_rays(n, 20 + n % 89, (0, 0, 0), 9.0, dev), K, plain,
@@ -851,19 +955,27 @@ def main() -> int:
                                   ("soup5k", stab, (0, 0, 0), 9.0)):
         check_kernels(f"{tname}/32768 t_max = hit t", tab,
                       tie_batch(tab, make_rays(1 << 15, 70, c, spread, dev), plain), K, plain,
-                      timing=False)
+                      timing=False, small=tab is ctab)
     timings[("soup 90% dead", chunk)] = check_kernels(
         f"soup5k/{chunk} 90% dead", stab, mostly_dead(make_rays(chunk, 71, (0, 0, 0), 9.0, dev), 72),
         K, plain, timing=True)
-    # the headline shape's entered tiles, for the K1/K2 bounds
+    timings[("cornell 90% dead", chunk)] = check_kernels(
+        f"cornell_tex/{chunk} 90% dead", ctab,
+        mostly_dead(make_rays(chunk, 73, box_c, 280.0, dev), 74), K, plain, timing=True,
+        small=True)
+    # the headline shape's entered tiles, for the K1/K2 bounds; the small
+    # walk's K1b against the per-thread walk's in turns
     head_rays = make_rays(chunk, 10 + chunk % 97, box_c, 280.0, dev)
-    head_stats = check_stats(f"cornell_tex/{chunk} stats", ctab, head_rays, K, plain)
+    head_stats = check_stats(f"cornell_tex/{chunk} stats", ctab, head_rays, K, plain,
+                             reps=(20, 1), small=True)
     hs = timings[("cornell", chunk)]
-    log(f"[kernels] the plan at block_t 8 (PER_THREAD_MAX_BLOCK_T {K.PER_THREAD_MAX_BLOCK_T}): "
-        f"headline shape K1 warp {hs['closest_ms']:.4f} ms vs per-thread "
-        f"{hs['closest_thread_ms']:.4f}, K2 warp {hs['any_ms']:.4f} vs per-thread "
-        f"{hs['any_thread_ms']:.4f} — the per-thread walk "
-        f"{'is faster there, as the plan assumes' if hs['closest_thread_ms'] < hs['closest_ms'] else 'is NOT faster there: revisit the plan'}")
+    log(f"[kernels] block_t 8 (PER_THREAD_MAX_BLOCK_T {K.PER_THREAD_MAX_BLOCK_T}; the plan: "
+        f"{ctab.plan}) at the synthetic headline shape: K1 small {hs['closest_small_ms']:.4f} ms "
+        f"vs per-thread {hs['closest_thread_vs_small_ms']:.4f}, K2 small {hs['any_small_ms']:.4f} "
+        f"vs per-thread {hs['any_thread_vs_small_ms']:.4f}; warp K1 {hs['closest_ms']:.4f}, K2 "
+        f"{hs['any_ms']:.4f} (per-thread {hs['closest_thread_ms']:.4f} / "
+        f"{hs['any_thread_ms']:.4f}); the plan follows phase 7's sums over the headline's own "
+        f"calls")
     _, head_any_entered = plain["any"](*head_rays, ctab.tris16, ctab.caabb, ctab.saabb,
                                        ctab.slab_aabb, **ctab.kw, stats=True)
     head_any_entered = int(head_any_entered.sum())
@@ -935,6 +1047,8 @@ def main() -> int:
         f"clusters of {mtab_host.block_t}, {mtab_host.n_slabs} slabs "
         f"(compile + plan {time.time() - t0:.1f} s)")
     check_stats("soup5k/1048576", stab, make_rays(1 << 20, 50, (0, 0, 0), 9.0, dev), K, plain)
+    check_stats("cornell_tex/1048576", ctab, make_rays(1 << 20, 52, box_c, 280.0, dev), K, plain,
+                small=True)
     check_stats("mesh100k/262144", mtab, make_rays(1 << 18, 51, (0, 0.5, 0), 3.0, dev), K, plain)
 
     # ---- 4. the slice at test size, on the card
@@ -944,12 +1058,12 @@ def main() -> int:
     calls = {"plain": 0}
 
     def walk_counters(walk):
-        """(the K1 / K2 counters of `walk`, those of the other walk)."""
-        sfx = {"warp": ("", "_thread"), "thread": ("_thread", "")}[walk]
-        return tuple(("tri_closest" + x, "tri_any" + x) for x in sfx)
+        """(the K1 / K2 counters of `walk`, those of the other walks)."""
+        counters = {w: ("tri_closest" + x, "tri_any" + x) for w, x in K.WALK_SUFFIX.items()}
+        return counters[walk], tuple(c for w, cs in counters.items() if w != walk for c in cs)
 
     def ran_alone(launches, walk):
-        """The path's K1 / K2 walk launched, the other walk and the plain
+        """The path's K1 / K2 walk launched, the other walks and the plain
         versions did not run on the card."""
         need, off = walk_counters(walk)
         return min(launches[k] for k in need) > 0 and not any(launches[k] for k in off) \
@@ -995,13 +1109,36 @@ def main() -> int:
 
     # ---- 5. headline
     phases.start("5 headline")
+    # capture: the inputs of warm-up passes' traversals for phase 7 —
+    # (config, kernel, call number) → (o, d, t_max)
+    captured = {}
+    capture = {"calls": {}}
+
+    def capturing(fn, key):
+        def wrapped(o, d, t_max, *a, **kw):
+            call = capture["calls"][key] = capture["calls"].get(key, 0) + 1
+            want = capture.get(key)
+            if want == "all" or (want and call in want):
+                captured[(capture["config"], key, call)] = (o.clone(), d.clone(), t_max.clone())
+            return fn(o, d, t_max, *a, **kw)
+        return wrapped
+
+    K.tri_closest_hit_tables = capturing(K.tri_closest_hit_tables, "tri_closest")
+    K.tri_any_hit_tables = capturing(K.tri_any_hit_tables, "tri_any")
+    S.sphere_closest_hit_tables = capturing(S.sphere_closest_hit_tables, "sphere_closest")
+    S.sphere_any_hit_tables = capturing(S.sphere_any_hit_tables, "sphere_any")
     res, spp, depth = HEADLINE["res"], HEADLINE["spp"], HEADLINE["depth"]
     head = compile_scene_file(REPO / "scenes" / "cornell_tex.pbrt",
                               overrides={"resolution": (res, res), "spp": spp, "max_depth": depth})
-    warm = compile_scene_file(REPO / "scenes" / "cornell_tex.pbrt",
-                              overrides={"resolution": (128, 128), "spp": spp, "max_depth": depth})
-    render_scene(warm, device="cuda", show_progress=False)
+    # the warm-up is the headline itself; its first chunk's K1 / K2 calls
+    # (the render loop finishes a chunk before the next: 2·depth + 1 closest
+    # calls, depth any-hit calls) are captured for phase 7
+    head_chunk_calls = {"tri_closest": range(1, 2 * depth + 2), "tri_any": range(1, depth + 1)}
+    capture.update(head_chunk_calls, config="headline", calls={})
+    render_scene(head, device="cuda", show_progress=False)
     torch.cuda.synchronize()
+    capture.clear()
+    capture.update(config=None, calls={})
     K.reset_launches()  # counts of the main path's run start here
     t0 = time.time()
     img, segments = render_scene(head, device="cuda", show_progress=False, count_rays=True)
@@ -1026,30 +1163,13 @@ def main() -> int:
 
     # ---- 6. the sphere-field and mesh configs
     phases.start("6 configs")
-    # capture: the inputs of the warm-up passes' traversals for phase 7 —
-    # (config, kernel, call number) → (o, d, t_max)
-    captured = {}
-    capture = {}
-
-    def capturing(fn, key):
-        def wrapped(o, d, t_max, *a, **kw):
-            call = capture["calls"][key] = capture["calls"].get(key, 0) + 1
-            if capture.get(key) in (call, "all"):
-                captured[(capture["config"], key, call)] = (o.clone(), d.clone(), t_max.clone())
-            return fn(o, d, t_max, *a, **kw)
-        return wrapped
-
-    K.tri_closest_hit_tables = capturing(K.tri_closest_hit_tables, "tri_closest")
-    K.tri_any_hit_tables = capturing(K.tri_any_hit_tables, "tri_any")
-    S.sphere_closest_hit_tables = capturing(S.sphere_closest_hit_tables, "sphere_closest")
-    S.sphere_any_hit_tables = capturing(S.sphere_any_hit_tables, "sphere_any")
     # closest-hit calls per bounce: the hit, then the MIS leg's (t, prim),
     # and after the last bounce the final hit; so call 3 is bounce 1's hit
     # (2 for the any-hit shadow rays), and call 5 bounce 2's (3 for its
     # shadow rays). The sphere field: every K3 call of the pass.
     capture_at = {"spherefield10k_256": {"sphere_closest": "all", "sphere_any": "all"},
-                  "mesh10k_512": {"tri_closest": 5, "tri_any": 3},
-                  "mesh100k_512": {"tri_closest": 5, "tri_any": 3}}
+                  "mesh10k_512": {"tri_closest": {5}, "tri_any": {3}},
+                  "mesh100k_512": {"tri_closest": {5}, "tri_any": {3}}}
     config_runs = {}
     for name, (fname, cres, cspp, cdepth, a_seg, a_sum) in CONFIGS.items():
         sc = config_scene(name)
@@ -1107,9 +1227,9 @@ def main() -> int:
                 f"spheres (< {AG.SPHERE_KERNEL_MIN}) take the dense sphere test")
             del plan
             continue
-        # the plan's walk: 8-row clusters (aggregate.plan_tri_kernel's small
-        # scenes) keep the per-thread walk (launch_plan)
-        walk = "thread" if sc.tris.count <= AG.SMALL_SCENE_TRIS else "warp"
+        # the plan's walk: 8-row clusters for aggregate.plan_tri_kernel's
+        # small scenes (launch_plan), as for the Cornell tables
+        walk = ctab.plan if sc.tris.count <= AG.SMALL_SCENE_TRIS else "warp"
         if not ran_alone(launches, walk):
             raise AssertionError(f"{name} did not run through the {walk} walk's K1 / K2 alone")
         if name.startswith("sphere"):  # the plan's K3 walk alone
@@ -1125,6 +1245,49 @@ def main() -> int:
     # ---- 7. the kernels at the paths' own shapes, and their bounds
     phases.start("7 bounds")
     K.reset_launches()  # the stats kernel's and the per-thread K3's path: this phase
+    # every K1 / K2 call of one headline chunk, through the small-table and
+    # the per-thread walks in turns; the per-pass sums (x the pass's chunks)
+    head_calls = {}
+    for kind in ("closest", "any"):
+        call_nums = sorted(c for cfg, key, c in captured
+                           if cfg == "headline" and key == "tri_" + kind)
+        if call_nums != list(head_chunk_calls["tri_" + kind]):
+            raise AssertionError(f"phase 7 holds the headline's {kind} calls {call_nums}, not "
+                                 f"{list(head_chunk_calls['tri_' + kind])}")
+        for call in call_nums:
+            what = (f"bounce {call - 1} shadow rays" if kind == "any" else
+                    {1: "bounce 0 hit: camera rays", 2 * depth + 1: "final hit"}.get(
+                        call, f"bounce {(call - 1) // 2} {'MIS leg' if call % 2 == 0 else 'hit'}"))
+            st = check_head_call(f"headline {kind} call {call}", ctab,
+                                 captured.pop(("headline", "tri_" + kind, call)), K, plain, kind,
+                                 reps=10)
+            head_calls[(kind, call)] = st
+            log(f"[bounds] K{1 if kind == 'closest' else 2} at the headline's {kind} call {call} "
+                f"({what}; {st['n']} rays, {st['live']} live, {st['hits']} hits) on {card}: small "
+                f"{st['ms']:.4f} ms (device {st['dev_ms']:.4f}), per-thread {st['thread_ms']:.4f} "
+                f"(device {st['thread_dev_ms']:.4f}), plain {st['plain_ms']:.2f}, bound "
+                f"{st['bound'][0]:.4f} ms ({st['bound'][1]}; {st['entered']} entered tiles) — "
+                + ("t bit-equal, rows equal to the per-thread walk's, K1b stats equal"
+                   if kind == "closest" else "any-hit equal"))
+    n_chunks = head_launches["tri_closest" + K.WALK_SUFFIX[ctab.plan]] // (2 * depth + 1)
+    head_sum = {}
+    for kind in ("closest", "any"):
+        sts = [st for (k, _), st in head_calls.items() if k == kind]
+        head_sum[kind] = {f: n_chunks * sum(st[f] for st in sts)
+                          for f in ("ms", "dev_ms", "thread_ms", "thread_dev_ms", "plain_ms")}
+        head_sum[kind]["bound"] = n_chunks * sum(st["bound"][0] for st in sts)
+        hsum = head_sum[kind]
+        log(f"[bounds] K{1 if kind == 'closest' else 2} per headline pass ({len(sts)} calls a "
+            f"chunk x {n_chunks} chunks) on {card}: small {hsum['ms']:.4f} ms (device "
+            f"{hsum['dev_ms']:.4f}), per-thread {hsum['thread_ms']:.4f} ms (device "
+            f"{hsum['thread_dev_ms']:.4f}), plain {hsum['plain_ms']:.1f} ms, bound "
+            f"{hsum['bound']:.4f} ms")
+    small_total = head_sum["closest"]["ms"] + head_sum["any"]["ms"]
+    thread_total = head_sum["closest"]["thread_ms"] + head_sum["any"]["thread_ms"]
+    faster = "small" if small_total < thread_total else "thread"
+    log(f"[bounds] K1 + K2 per headline pass: small {small_total:.4f} ms, per-thread "
+        f"{thread_total:.4f} ms — the plan's walk at block_t 8 ({ctab.plan}) "
+        f"{'has the lower sum, as the plan assumes' if faster == ctab.plan else 'does NOT have the lower sum: revisit the plan'}")
     # every K3 launch of one sphere-field pass, in launch order: closest
     # calls 1 to 2·depth + 1 (bounce b's hit is call 2b + 1, its MIS leg
     # 2b + 2, the last call the final hit) and any-hit calls 1 to depth
@@ -1180,6 +1343,7 @@ def main() -> int:
                                    captured[(name, "tri_any", 3)], K, plain, reps=(5, 1))
     stats_launches = K.LAUNCHES["tri_closest_stats"]
     stats_thread_launches = K.LAUNCHES["tri_closest_stats_thread"]
+    stats_small_launches = K.LAUNCHES["tri_closest_stats_small"]
 
     # every bound counts a live ray's o, d and t_max and a dead ray's t_max
     def k1_bound(st, out_b=8):
@@ -1198,12 +1362,17 @@ def main() -> int:
     k1_100_b = k1_bound(st100)
     k2_100_b = k2_bound(any100)
     k1s_b = k1_bound(st100, out_b=16)
-    log(f"[bounds] on {card}: K1 headline shape ({chunk} rays; the plan's walk there: "
-        f"{ctab.plan}): per-thread {head_shape['closest_thread_ms']:.4f} ms, warp "
-        f"{head_shape['closest_ms']:.4f} ms, bound {k1_b[0]:.4f} ms ({k1_b[1]}; "
-        f"{head_stats['entered']} entered tiles); K2 per-thread {head_shape['any_thread_ms']:.4f} "
-        f"ms, warp {head_shape['any_ms']:.4f} ms, bound {k2_b[0]:.4f} ms ({k2_b[1]}; "
-        f"{head_any_entered} entered tiles)")
+    k1s_head_b = k1_bound(head_stats, out_b=16)
+    log(f"[bounds] on {card}: K1 synthetic headline shape ({chunk} rays; the plan's walk there: "
+        f"{ctab.plan}): small {head_shape['closest_small_ms']:.4f} ms (per-thread in turns "
+        f"{head_shape['closest_thread_vs_small_ms']:.4f}), per-thread "
+        f"{head_shape['closest_thread_ms']:.4f} ms, warp {head_shape['closest_ms']:.4f} ms, bound "
+        f"{k1_b[0]:.4f} ms ({k1_b[1]}; {head_stats['entered']} entered tiles); K1b small "
+        f"{head_stats['stats_ms']:.4f} ms, per-thread {head_stats['stats_thread_ms']:.4f}, bound "
+        f"{k1s_head_b[0]:.4f}; K2 small {head_shape['any_small_ms']:.4f} ms (per-thread in turns "
+        f"{head_shape['any_thread_vs_small_ms']:.4f}), per-thread "
+        f"{head_shape['any_thread_ms']:.4f} ms, warp {head_shape['any_ms']:.4f} ms, bound "
+        f"{k2_b[0]:.4f} ms ({k2_b[1]}; {head_any_entered} entered tiles)")
     for name, st in mesh_rows.items():
         b = k1_bound(st)
         log(f"[bounds] K1 at {name}'s bounce-2 shape ({st['n']} rays, {st['live']} live): warp "
@@ -1218,10 +1387,13 @@ def main() -> int:
             f"{sa['plain_ms']:.3f}), bound {b[0]:.4f} ms ({b[1]}; {sa['any_entered']} entered "
             f"tiles of the plain version)")
     for (tab, n), tm in sorted(timings.items()):
+        small_ms = (f"; small K1 {tm['closest_small_ms']:.4f} / K2 {tm['any_small_ms']:.4f} ms "
+                    f"(per-thread in turns {tm['closest_thread_vs_small_ms']:.4f} / "
+                    f"{tm['any_thread_vs_small_ms']:.4f})" if "closest_small_ms" in tm else "")
         log(f"[kernels] {tab}/{n} rays on {card}: K1 warp {tm['closest_ms']:.4f} ms, per-thread "
             f"{tm['closest_thread_ms']:.4f} (plain {tm['closest_plain_ms']:.4f}); K2 warp "
             f"{tm['any_ms']:.4f} ms, per-thread {tm['any_thread_ms']:.4f} (plain "
-            f"{tm['any_plain_ms']:.4f})")
+            f"{tm['any_plain_ms']:.4f}){small_ms}")
     for (tab, n), tm in sorted(sph_timings.items()):
         log(f"[spheres] {tab}/{n} rays on {card}: K3 closest warp {tm['closest_ms']:.4f} ms, "
             f"per-thread {tm['closest_thread_ms']:.4f} (plain {tm['closest_plain_ms']:.4f}); any "
@@ -1637,6 +1809,7 @@ def main() -> int:
     # ---- report
     src = "curry_pbrt_tpu_torch/csrc/intersect.cu"
     wsrc = "curry_pbrt_tpu_torch/csrc/intersect_warp.cu"
+    ssrc = "curry_pbrt_tpu_torch/csrc/intersect_small.cu"
     field_l = config_runs["spherefield10k_256"]["launches"]
     m100_l = config_runs["mesh100k_512"]["launches"]
 
@@ -1651,8 +1824,8 @@ def main() -> int:
     grp_src = "curry_pbrt_tpu_torch/csrc/intersect_group.cu"
     bsrc = "curry_pbrt_tpu_torch/csrc/bvh_walk.cu"
     # K1 / K2: the warp walk at mesh100k's bounce-2 shapes (its render path:
-    # launches per pass), the per-thread walk at the headline shape (its
-    # path, by the plan's rule for 8-row clusters)
+    # launches per pass), the small-table and the per-thread walk at the
+    # synthetic headline shape (launches per headline pass; K1b's in phase 7)
     kernels = [
         entry("tri_closest_hit", f"{tri_k}:709", m100_l["tri_closest"], st100["max_abs_err"],
               st100["ms"], st100["plain_ms"], k1_100_b, wsrc),
@@ -1660,6 +1833,15 @@ def main() -> int:
               any100["ms"], any100["plain_ms"], k2_100_b, wsrc),
         entry("tri_closest_hit_stats", f"{tri_k}:712", stats_launches,
               st100["stats_max_abs_err"], st100["stats_ms"], st100["stats_plain_ms"], k1s_b, wsrc),
+        entry("tri_closest_hit_small", f"{tri_k}:709", head_launches["tri_closest_small"],
+              head_shape["small_max_abs_err"], head_shape["closest_small_ms"],
+              head_shape["closest_plain_ms"], k1_b, ssrc),
+        entry("tri_any_hit_small", f"{tri_k}:760", head_launches["tri_any_small"],
+              head_shape["any_small_max_abs_err"], head_shape["any_small_ms"],
+              head_shape["any_plain_ms"], k2_b, ssrc),
+        entry("tri_closest_hit_stats_small", f"{tri_k}:712", stats_small_launches,
+              head_stats["stats_small_max_abs_err"], head_stats["stats_ms"],
+              head_stats["stats_plain_ms"], k1s_head_b, ssrc),
         entry("tri_closest_hit_thread", f"{tri_k}:709", head_launches["tri_closest_thread"],
               head_shape["thread_max_abs_err"], head_shape["closest_thread_ms"],
               head_shape["closest_plain_ms"], k1_b),

@@ -39,11 +39,13 @@
 // ray never tests a cluster that only its neighbours enter.
 //
 // Its instantiations (curry_tri_*_thread, curry_sphere_*_thread) are the
-// A/B baseline of the warp-cooperative walk of intersect_warp.cu. The launch
-// plan (ops/kernels/intersect_kernel.py) keeps them for tables of 8 rows a
-// cluster (the Cornell scenes), where they measured faster on the card; the
-// 64-row sphere tables and the mesh tables take the warp walk, and only
-// chip_smoke.py and the tools call this walk on them.
+// A/B baseline of the warp-cooperative walk of intersect_warp.cu and of the
+// small-table walk of intersect_small.cu. The launch plan
+// (ops/kernels/intersect_kernel.py) sends triangle tables of 8 rows a
+// cluster (the Cornell scenes) to the small-table walk and the mesh and
+// 64-row sphere tables to the warp walk; it keeps this walk only for sphere
+// tables of at most 8 rows, which no scene builds. chip_smoke.py and the
+// tools call it for the A/B.
 //
 // Built by ops/kernels/build.py with nvcc -fmad=false (no fast math, IEEE
 // division and square root); the plain PyTorch versions beside the wrappers

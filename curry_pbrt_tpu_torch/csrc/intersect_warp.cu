@@ -53,9 +53,9 @@
 //     the serial walk's.
 // The boxes are read from global memory (L1/L2): staged in shared memory they
 // measured no faster on the card. The launch plan (ops/kernels/
-// intersect_kernel.py) keeps the per-thread walk for tables of 8 rows a
-// cluster (the Cornell scenes: coherent rays over a handful of clusters),
-// where it measured faster on the card than this walk.
+// intersect_kernel.py) sends triangle tables of 8 rows a cluster (the
+// Cornell scenes: coherent rays over a handful of clusters, where 24 of this
+// walk's 32 lanes would idle) to the small-table walk of intersect_small.cu.
 //
 // Built by ops/kernels/build.py with nvcc -fmad=false (no fast math, IEEE
 // division and square root); the plain PyTorch versions round identically.

@@ -109,6 +109,9 @@ ENTRY_POINTS = {
     "curry_tri_any_hit_warp": _TABLE_ARGS + [_P] * 2,
     "curry_sphere_closest_hit_warp": _TABLE_ARGS + [_P] * 3,  # t_out, row_out; stream
     "curry_sphere_any_hit_warp": _TABLE_ARGS + [_P] * 2,
+    # intersect_small.cu, the same signatures
+    "curry_tri_closest_hit_small": _TABLE_ARGS + [_P] * 5,
+    "curry_tri_any_hit_small": _TABLE_ARGS + [_P] * 2,
     # intersect.cu, the same signatures
     "curry_tri_closest_hit_thread": _TABLE_ARGS + [_P] * 5,
     "curry_tri_any_hit_thread": _TABLE_ARGS + [_P] * 2,

@@ -1,6 +1,7 @@
 """Closest-hit (K1) and any-hit (K2) triangle traversal over cluster tables:
 the host table construction, the wrappers of the CUDA kernels in
-csrc/intersect_warp.cu, their launch plan, and their plain PyTorch versions.
+csrc/intersect_small.cu, csrc/intersect_warp.cu and csrc/intersect.cu, their
+launch plan, and their plain PyTorch versions.
 
 Counterpart of the JAX package's ops/pallas/intersect_kernel.py. The host
 table functions are copied as they are, so both packages build identical tables:
@@ -17,13 +18,16 @@ table functions are copied as they are, so both packages build identical tables:
 tables. For tensors on the CPU they run the plain versions; for CUDA tensors
 they launch the kernel `launch_plan` picks from block_t, and
 raise if it cannot run — there is no fallback from the card to the plain
-code: the warp-cooperative walk of csrc/intersect_warp.cu (the 32 lanes of
-a warp on one ray, lanes on a cluster's rows, live rays only), or, for
-tables of at most PER_THREAD_MAX_BLOCK_T rows a cluster (the Cornell
-scenes), the per-thread walk of csrc/intersect.cu, which the card runs
-faster there. `tri_closest_hit_warp` / `tri_closest_hit_thread`
-(and the any-hit pair) force one walk: the A/B of chip_smoke.py and the
-tools.
+code: for tables of at most PER_THREAD_MAX_BLOCK_T rows a cluster (the
+small-scene plan's tables: the Cornell scenes) the small-table walk of
+csrc/intersect_small.cu (the table in shared memory, one thread per live
+ray, the live rays binned by dominant axis), which refuses tables it cannot
+stage (more than one slab, supers, more than SMALL_TABLE_MAX_BYTES);
+beyond, the warp-cooperative walk of csrc/intersect_warp.cu (the 32 lanes
+of a warp on one ray, lanes on a cluster's rows, live rays only).
+`tri_closest_hit_small` / `tri_closest_hit_warp` / `tri_closest_hit_thread`
+(and the any-hit trio) force one walk, for the A/B of chip_smoke.py and the
+tools; the per-thread walk of csrc/intersect.cu is the baseline of both.
 `LAUNCHES` counts kernel launches per kernel, those of the sphere kernels
 (sphere_kernel.py), the group kernels (intersect_group.py), the BVH walk
 (bvh_kernel.py) and the slab-grid probe (tools/probe_slab_grid.py)
@@ -61,8 +65,10 @@ USE_SUPERS_MIN = 96  # enable the super-cluster level beyond this many clusters
 
 # Kernel launches per wrapper since the last reset (plain-version calls on
 # CPU tensors are not launches and are not counted). tri_* / sphere_*: the
-# warp walk; bvh_*: the live-ray BVH walk; *_thread: the per-thread walks.
+# warp walk; tri_*_small: the small-table walk; bvh_*: the live-ray BVH
+# walk; *_thread: the per-thread walks.
 LAUNCHES = {"tri_closest": 0, "tri_closest_stats": 0, "tri_any": 0,
+            "tri_closest_small": 0, "tri_closest_stats_small": 0, "tri_any_small": 0,
             "tri_closest_thread": 0, "tri_closest_stats_thread": 0, "tri_any_thread": 0,
             "sphere_closest": 0, "sphere_any": 0, "sphere_closest_thread": 0,
             "sphere_any_thread": 0,
@@ -70,12 +76,18 @@ LAUNCHES = {"tri_closest": 0, "tri_closest_stats": 0, "tri_any": 0,
             "bvh_closest": 0, "bvh_any": 0, "bvh_closest_thread": 0, "bvh_any_thread": 0}
 
 WARP = 32
-# Tables of up to this many rows a cluster keep the per-thread walk: on the
-# headline's Cornell tables (block_t 8; coherent rays, a handful of
-# clusters) the per-thread walk takes 0.87 ms per 4,194,304-ray call where
-# the warp walk, 24 of its 32 lanes idle, takes 2.9 ms (chip_smoke.py phase
-# 3, PERF.md).
+# Tables of up to this many rows a cluster take the small-table walk: over
+# the K1 / K2 calls of a headline pass it measured 0.51x / 0.42x the
+# per-thread walk's time, where the warp walk, 24 of its 32 lanes idle on
+# 8-row clusters, measured 3.4x / 2.2x it (chip_smoke.py phases 3 and 7,
+# PERF.md).
 PER_THREAD_MAX_BLOCK_T = 8
+# What the small-table walk stages in shared memory: 48 bytes a row (its 10
+# used columns, 16-byte aligned) and 32 a cluster box, at most this many
+# bytes (csrc/intersect_small.cu MAX_TABLE_BYTES) — 98 clusters of 8 rows.
+SMALL_ROW_BYTES, SMALL_BOX_BYTES = 48, 32
+SMALL_TABLE_MAX_BYTES = 40 * 1024
+WALK_SUFFIX = {"warp": "", "small": "_small", "thread": "_thread"}  # LAUNCHES keys
 
 
 def reset_launches() -> None:
@@ -470,12 +482,43 @@ def _check(o, d, t_max, prims, caabb, saabb, slab_aabb, block, cps, use_supers):
         raise ValueError(f"no traversal kernel for device {o.device}")
 
 
-def launch_plan(block_t: int) -> str:
-    """The walk tri_closest_hit_tables / tri_any_hit_tables (and the sphere
-    wrappers, from block_s) launch for tables of block_t rows a cluster:
-    "thread" (csrc/intersect.cu) up to PER_THREAD_MAX_BLOCK_T, "warp"
-    (csrc/intersect_warp.cu) beyond."""
-    return "thread" if block_t <= PER_THREAD_MAX_BLOCK_T else "warp"
+def launch_plan(block_t: int, spheres: bool = False) -> str:
+    """The walk tri_closest_hit_tables / tri_any_hit_tables (and, with
+    spheres, the sphere wrappers, from block_s) launch for tables of block_t
+    rows a cluster: "warp" (csrc/intersect_warp.cu) beyond
+    PER_THREAD_MAX_BLOCK_T; up to it "small" (csrc/intersect_small.cu), which
+    has no sphere test, so sphere tables take "thread" (csrc/intersect.cu)."""
+    if block_t > PER_THREAD_MAX_BLOCK_T:
+        return "warp"
+    return "thread" if spheres else "small"
+
+
+def small_table_bytes(n_clusters: int, block_t: int) -> int:
+    """Shared memory the small-table walk stages for a table."""
+    return n_clusters * (block_t * SMALL_ROW_BYTES + SMALL_BOX_BYTES)
+
+
+def _choose_walk(walk, o, caabb, slab_aabb, block, use_supers) -> str:
+    """The walk a launch takes: `walk` where one is forced, else the plan's.
+    Raises for tables the small-table walk cannot stage where it would take
+    them: a forced small walk on every device, the plan's on the card."""
+    chosen = walk or launch_plan(block)
+    if chosen == "small" and (walk or o.device.type != "cpu"):
+        _check_small(caabb, slab_aabb, block, use_supers)
+    return chosen
+
+
+def _check_small(caabb, slab_aabb, block, use_supers):
+    """Raise for tables the small-table walk does not take."""
+    nc = caabb.shape[0]
+    if block > PER_THREAD_MAX_BLOCK_T or slab_aabb.shape[0] != 1 or use_supers:
+        raise ValueError(f"the small-table walk takes one slab, no supers and at most "
+                         f"{PER_THREAD_MAX_BLOCK_T} rows a cluster; got {slab_aabb.shape[0]} "
+                         f"slabs, supers {bool(use_supers)}, block_t {block}")
+    if small_table_bytes(nc, block) > SMALL_TABLE_MAX_BYTES:
+        raise ValueError(f"the small-table walk stages at most {SMALL_TABLE_MAX_BYTES} bytes of "
+                         f"table in shared memory; {nc} clusters of {block} rows need "
+                         f"{small_table_bytes(nc, block)}")
 
 
 def _aligned(x):
@@ -485,16 +528,15 @@ def _aligned(x):
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def _launch(entry: str, counter: str, outs, o, d, t_max, prims, caabb, saabb, slab_aabb, block,
-            cps, use_supers):
-    """Launch one entry point of csrc/*.cu on CUDA tensors: the C arguments
-    are the contiguous inputs, the table sizes, the error-bound constants,
-    the output pointers (None → NULL) and the current stream. Raises on a
-    refused launch; counts the launch."""
-    from curry_pbrt_tpu_torch.ops.kernels.build import load_library
-
+def launch_entry(lib, entry: str, outs, o, d, t_max, prims, caabb, saabb, slab_aabb, block, cps,
+                 use_supers) -> bool:
+    """Launch one table-walk entry point of `lib` (the CURRY_TABLE_ARGS of
+    csrc/intersect.cuh) on CUDA tensors: the C arguments are the contiguous
+    inputs, the table sizes, the error-bound constants, the output pointers
+    (None → NULL) and the current stream. Raises on a refused launch;
+    returns whether it launched (no ray, no launch)."""
     if o.shape[0] == 0:
-        return
+        return False
     if o.shape[0] > 2**31 - 1 - WARP:
         raise ValueError(f"the kernels index rays with 32-bit ints; got {o.shape[0]} rays")
     keep = [_aligned(x) for x in (o, d, t_max, prims, caabb, saabb, slab_aabb)]
@@ -502,12 +544,20 @@ def _launch(entry: str, counter: str, outs, o, d, t_max, prims, caabb, saabb, sl
     args += [o.shape[0], block, cps, slab_aabb.shape[0], int(bool(use_supers))]
     args += [float(_G2), float(_G3), float(_G5), float(T_SCALE)]
     args += [None if x is None else x.data_ptr() for x in outs]
-    err = getattr(load_library(), entry)(*args, torch.cuda.current_stream(o.device).cuda_stream)
+    err = getattr(lib, entry)(*args, torch.cuda.current_stream(o.device).cuda_stream)
     # `keep` may be freed now: the caching allocator reuses its memory only
     # for work queued after this launch on the same stream
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
-    LAUNCHES[counter] += 1
+    return True
+
+
+def _launch(entry: str, counter: str, outs, *args):
+    """launch_entry on the port's library (csrc/*.cu); counts the launch."""
+    from curry_pbrt_tpu_torch.ops.kernels.build import load_library
+
+    if launch_entry(load_library(), entry, outs, *args):
+        LAUNCHES[counter] += 1
 
 
 def _closest_outputs(o, stats: bool):
@@ -524,12 +574,12 @@ def _closest(walk, o, d, t_max, tris16, caabb, saabb, slab_aabb, block_t, cluste
              use_supers, stats):
     args = (o, d, t_max, tris16, caabb, saabb, slab_aabb)
     _check(*args, block_t, clusters_per_slab, use_supers)
+    walk = _choose_walk(walk, o, caabb, slab_aabb, block_t, use_supers)
     if o.device.type == "cpu":
         return tri_closest_hit_plain(*args, block_t=block_t, clusters_per_slab=clusters_per_slab,
                                      use_supers=use_supers, stats=stats)
-    walk = walk or launch_plan(block_t)
     outs = _closest_outputs(o, stats)
-    counter = ("tri_closest_stats" if stats else "tri_closest") + ("_thread" if walk == "thread" else "")
+    counter = ("tri_closest_stats" if stats else "tri_closest") + WALK_SUFFIX[walk]
     _launch("curry_tri_closest_hit_" + walk, counter, outs if stats else outs + [None, None],
             *args, block_t, clusters_per_slab, use_supers)
     return tuple(outs)
@@ -539,13 +589,13 @@ def _any(walk, o, d, t_max, tris16, caabb, saabb, slab_aabb, block_t, clusters_p
          use_supers):
     args = (o, d, t_max, tris16, caabb, saabb, slab_aabb)
     _check(*args, block_t, clusters_per_slab, use_supers)
+    walk = _choose_walk(walk, o, caabb, slab_aabb, block_t, use_supers)
     if o.device.type == "cpu":
         return tri_any_hit_plain(*args, block_t=block_t, clusters_per_slab=clusters_per_slab,
                                  use_supers=use_supers)
-    walk = walk or launch_plan(block_t)
     hit = torch.empty((o.shape[0],), dtype=torch.bool, device=o.device)
-    _launch("curry_tri_any_hit_" + walk, "tri_any_thread" if walk == "thread" else "tri_any",
-            [hit], *args, block_t, clusters_per_slab, use_supers)
+    _launch("curry_tri_any_hit_" + walk, "tri_any" + WALK_SUFFIX[walk], [hit], *args, block_t,
+            clusters_per_slab, use_supers)
     return hit
 
 
@@ -557,7 +607,7 @@ def tri_closest_hit_tables(o, d, t_max, tris16, caabb, saabb, slab_aabb, *,
     on miss); with stats=True also per-ray (entered, improved) int32 tile
     counts (the TPU kernel counts per lane sub-group; the port per ray).
     CPU tensors → plain version; CUDA tensors → the kernel launch_plan
-    picks from block_t (the warp walk, or the per-thread walk for
+    picks from block_t (the warp walk, or the small-table walk for
     block_t <= PER_THREAD_MAX_BLOCK_T)."""
     return _closest(None, o, d, t_max, tris16, caabb, saabb, slab_aabb, block_t,
                     clusters_per_slab, use_supers, stats)
@@ -569,6 +619,23 @@ def tri_any_hit_tables(o, d, t_max, tris16, caabb, saabb, slab_aabb, *,
     → plain version; CUDA tensors → the kernel launch_plan picks."""
     return _any(None, o, d, t_max, tris16, caabb, saabb, slab_aabb, block_t, clusters_per_slab,
                 use_supers)
+
+
+def tri_closest_hit_small(o, d, t_max, tris16, caabb, saabb, slab_aabb, *,
+                          block_t: int, clusters_per_slab: int, use_supers: bool,
+                          stats: bool = False):
+    """tri_closest_hit_tables through the small-table walk
+    (csrc/intersect_small.cu) whatever the plan; raises, on every device,
+    for tables it does not take (_check_small)."""
+    return _closest("small", o, d, t_max, tris16, caabb, saabb, slab_aabb, block_t,
+                    clusters_per_slab, use_supers, stats)
+
+
+def tri_any_hit_small(o, d, t_max, tris16, caabb, saabb, slab_aabb, *,
+                      block_t: int, clusters_per_slab: int, use_supers: bool):
+    """tri_any_hit_tables through the small-table walk whatever the plan."""
+    return _any("small", o, d, t_max, tris16, caabb, saabb, slab_aabb, block_t,
+                clusters_per_slab, use_supers)
 
 
 def tri_closest_hit_warp(o, d, t_max, tris16, caabb, saabb, slab_aabb, *,
@@ -591,7 +658,8 @@ def tri_closest_hit_thread(o, d, t_max, tris16, caabb, saabb, slab_aabb, *,
                            block_t: int, clusters_per_slab: int, use_supers: bool,
                            stats: bool = False):
     """tri_closest_hit_tables through the per-thread walk (csrc/intersect.cu,
-    one thread per ray) whatever the plan: the A/B baseline."""
+    one thread per ray) whatever the plan: the A/B baseline of the other
+    two walks."""
     return _closest("thread", o, d, t_max, tris16, caabb, saabb, slab_aabb, block_t,
                     clusters_per_slab, use_supers, stats)
 
@@ -622,6 +690,14 @@ class DeviceTables:
     def any_hit(self, o, d, t_max):
         return tri_any_hit_tables(o, d, t_max, self.tris16, self.caabb, self.saabb,
                                   self.slab_aabb, **self.kw)
+
+    def closest_small(self, o, d, t_max):
+        return tri_closest_hit_small(o, d, t_max, self.tris16, self.caabb, self.saabb,
+                                     self.slab_aabb, **self.kw)
+
+    def any_hit_small(self, o, d, t_max):
+        return tri_any_hit_small(o, d, t_max, self.tris16, self.caabb, self.saabb,
+                                 self.slab_aabb, **self.kw)
 
     def closest_warp(self, o, d, t_max):
         return tri_closest_hit_warp(o, d, t_max, self.tris16, self.caabb, self.saabb,

@@ -248,7 +248,7 @@ def _closest(walk, o, d, t_max, sph16, caabb, saabb, slab_aabb, block_s, cluster
         return sphere_closest_hit_plain(*args, block_s=block_s,
                                         clusters_per_slab=clusters_per_slab,
                                         use_supers=use_supers)
-    walk = walk or launch_plan(block_s)
+    walk = walk or launch_plan(block_s, spheres=True)
     outs = _closest_outputs(o, stats=False)
     _launch("curry_sphere_closest_hit_" + walk,
             "sphere_closest_thread" if walk == "thread" else "sphere_closest", outs, *args,
@@ -263,7 +263,7 @@ def _any(walk, o, d, t_max, sph16, caabb, saabb, slab_aabb, block_s, clusters_pe
     if o.device.type == "cpu":
         return sphere_any_hit_plain(*args, block_s=block_s, clusters_per_slab=clusters_per_slab,
                                     use_supers=use_supers)
-    walk = walk or launch_plan(block_s)
+    walk = walk or launch_plan(block_s, spheres=True)
     hit = torch.empty((o.shape[0],), dtype=torch.bool, device=o.device)
     _launch("curry_sphere_any_hit_" + walk,
             "sphere_any_thread" if walk == "thread" else "sphere_any", [hit], *args, block_s,
@@ -357,4 +357,4 @@ class DeviceSphereTables:
     @property
     def plan(self) -> str:
         """The walk launch_plan picks for these tables."""
-        return launch_plan(self.kw["block_s"])
+        return launch_plan(self.kw["block_s"], spheres=True)

@@ -134,7 +134,7 @@ def _spherefield():
 @pytest.mark.parametrize("case", ["cornell-bt8", "mesh10k-160", "mesh100k-1792", "mesh600k-4.7k",
                                   "spherefield10k-136"])
 def test_launch_plan(case):
-    """The per-thread walk for the Cornell tables (8 rows a cluster), the
+    """The small-table walk for the Cornell tables (8 rows a cluster), the
     warp walk for tables with the mesh configs' cluster counts (supers, 7
     slabs at mesh100k, 128-row clusters at mesh600k) and for the sphere
     field's own tables (64 spheres a cluster, supers, one slab)."""
@@ -145,7 +145,7 @@ def test_launch_plan(case):
            "spherefield10k-136": _spherefield}[case]()
     nc = tab.cluster_aabbs.shape[0]
     want = {
-        "cornell-bt8": (8, False, 1, "thread"),
+        "cornell-bt8": (8, False, 1, "small"),
         "mesh10k-160": (64, True, 1, "warp"),
         "mesh100k-1792": (64, True, 7, "warp"),
         "mesh600k-4.7k": (128, True, 19, "warp"),
