@@ -84,15 +84,26 @@ non-zero and no result line is printed:
                entered-tile counts of K1's stats and of the plain versions);
                K3's per-pass sum for each walk;
   8. probes  — the traversal-analysis path (curry_pbrt_tpu_torch/tools/):
-               the group kernel K4 (closest and any hit) against its plain
-               version and against K1 / K2 on the phase-3 soup at 32k rays
-               (t bit-equal, any-hit equal, rows and prims equal up to
-               exact-t ties); the K1 / K4 A/B on mesh10k and mesh100k at the
-               render chunk (4,194,304 rays), depth 6, the same checks per
-               bounce for K4 and for the per-thread walk, and each kernel's
-               ms (K1 / K2 and the per-thread walk in turns); K4 at
-               mesh10k's bounce 2 against its plain version, with its bound
-               from K1's entered tiles;
+               the group kernel K4 (closest and any hit; each ray tests only
+               the clusters its own gate lets in) and its baseline (the
+               `*_group_rule` kernels: every live ray of the group) against
+               their plain version — t bit-equal, rows equal (0 tie rows), any-hit
+               equal, K4 launched twice bit-equal — and K4 against K1 / K2
+               (t bit-equal, prims up to exact-t ties, any-hit equal) on the
+               phase-3 soup at 32k rays; against the plain version on a
+               t_max-tie batch of that soup and on the face-tie batch
+               (first hits at exactly t_max in a cluster whose box_near is
+               t_max) and a coplanar batch (overlapping coplanar triangles
+               over clusters: hits just below their cluster's box_near,
+               kept by the gate's slack); the A/B on mesh10k and mesh100k at the render chunk
+               (4,194,304 rays), depth 6, the same checks per bounce for K4,
+               its baseline and the per-thread walk, K4 and its baseline
+               timed in turns by cuda_ms and device_ms (K4 must be faster
+               at every bounce >= 1, within 1.03x at bounce 0), K1 / K2 and
+               the per-thread walk in turns, the plain versions once; K4's
+               bounds at mesh10k's bounces 0 and 2 — the function's (K1's /
+               K2's tiles), the design's (the gate's tiles) and the group
+               rule's;
                the roofline on cornell_tex and mesh10k; the granularity
                probe on mesh10k; the slab-grid probe P at the JAX shape and
                at 16,384 blocks x 7 slabs against its plain version (rtol
@@ -197,6 +208,10 @@ SLICE_MAX_OUTLIER_FRAC = 0.01
 SLICE_SUM_RTOL = 1e-3
 
 PROBE_DEPTH = 6  # bounces of the phase-8 workload
+# the group kernel K4's launch counters (its baseline's too): no render path
+# launches them
+GROUP_COUNTERS = ("tri_closest_group", "tri_any_group", "tri_closest_group_rule",
+                  "tri_any_group_rule")
 
 
 def log(msg: str) -> None:
@@ -663,14 +678,15 @@ def check_head_call(name, tables, rays, K, plain, kind, reps):
     return out
 
 
-def check_group(name, gtab, ktab, gprim, kprim, rays, G, t_any=None, plain_reps=None):
-    """K4 (closest and any hit) against its plain version and against K1 /
-    K2 (ktab) on one ray batch: t bit-equal to the plain version's and to
-    K1's, any-hit equal to both, rows equal to the plain version's up to
-    exact-t ties, prims equal to K1's (through each table's prim) up to
-    exact-t ties. t_any: the any-hit bound (t_max by default). Returns the
-    errors, the plain versions' group-granular entered tiles and, with
-    plain_reps, the plain versions' ms."""
+def check_group(name, gtab, ktab, gprim, kprim, rays, G, t_any=None):
+    """K4 (closest and any hit) and its baseline (`*_group_rule`) against the
+    plain version, and K4 against K1 / K2 (ktab; None: not compared) on one
+    ray batch: t bit-equal to the plain version's, rows equal to its rows (0
+    tie rows), any-hit equal; K4 launched twice bit-equal; no hit on a dead
+    lane; t bit-equal to K1's, prims equal to K1's (through each table's
+    prim) up to exact-t ties, any-hit equal to K2's. t_any: the any-hit
+    bound (t_max by default). Logs the plain versions' tile counts, under
+    the group rule and under the gate; returns the closest-hit count."""
     import torch
 
     o, d, t_max = rays
@@ -680,44 +696,51 @@ def check_group(name, gtab, ktab, gprim, kprim, rays, G, t_any=None, plain_reps=
     a_args = (o, d, t_any) + c_args[3:]
     t4, r4 = G.tri_closest_hit_groups(*c_args, **kw)
     h4 = G.tri_any_hit_groups(*a_args, **kw)
-    t1, r1 = ktab.closest(o, d, t_max)
-    h2 = ktab.any_hit(o, d, t_any)
+    t4_2, r4_2 = G.tri_closest_hit_groups(*c_args, **kw)
+    h4_2 = G.tri_any_hit_groups(*a_args, **kw)
+    t4b, r4b = G.tri_closest_hit_group_rule(*c_args, **kw)
+    h4b = G.tri_any_hit_group_rule(*a_args, **kw)
     torch.cuda.synchronize()
     t_p, r_p, ent8, _ = G.tri_closest_hit_groups_plain(*c_args, **kw, stats=True)
     h_p, any_ent8 = G.tri_any_hit_groups_plain(*a_args, **kw, stats=True)
-    if not torch.equal(t4, t_p):
-        raise AssertionError(f"{name}: K4 t not bit-equal to its plain version on "
-                             f"{int((t4 != t_p).sum())} rays")
-    if not (torch.equal(h4, h_p) and torch.equal(h4, h2)):
-        raise AssertionError(f"{name}: K4 any-hit differs from its plain version on "
-                             f"{int((h4 != h_p).sum())} rays, from K2 on {int((h4 != h2).sum())}")
-    if not torch.equal(t4, t1):
-        raise AssertionError(f"{name}: K4 t not bit-equal to K1's on {int((t4 != t1).sum())} rays")
-    diff = r4 != r_p
-    if diff.any():  # allowed only where both rows give the same t (a tie)
-        tk = row_t(gtab.tris16, o[diff], d[diff], t_max[diff], r4[diff])
-        tp = row_t(gtab.tris16, o[diff], d[diff], t_max[diff], r_p[diff])
-        if not (torch.equal(tk, tp) and torch.equal(tk, t4[diff])):
-            raise AssertionError(f"{name}: K4 rows differ from the plain version's beyond ties")
-    n_mis, n_bad = non_tie_mismatches(ktab, kprim, r1, gtab, gprim, r4, o, d, t_max)
-    if n_bad:
-        raise AssertionError(f"{name}: K4 prims differ from K1's beyond exact-t ties on {n_bad} rays")
-    if (r4[t_max == 0] >= 0).any() or h4[t_any == 0].any():
-        raise AssertionError(f"{name}: a dead lane (t_max 0) reported a K4 hit")
+    _, _, ent_g, _ = G.tri_closest_hit_groups_plain(*c_args, **kw, stats=True, gate=True)
+    _, any_ent_g = G.tri_any_hit_groups_plain(*a_args, **kw, stats=True, gate=True)
+    bits = lambda x: x.view(torch.int32)  # noqa: E731
+    for what, t, r, h in (("K4", t4, r4, h4), ("K4 relaunched", t4_2, r4_2, h4_2),
+                          ("the K4 baseline", t4b, r4b, h4b)):
+        if not torch.equal(bits(t), bits(t_p)):
+            raise AssertionError(f"{name}: {what} t not bit-equal to the plain version on "
+                                 f"{int((t != t_p).sum())} rays")
+        if not torch.equal(r, r_p):
+            raise AssertionError(f"{name}: {what} rows differ from the plain version's on "
+                                 f"{int((r != r_p).sum())} rays (0 tie rows allowed)")
+        if not torch.equal(h, h_p):
+            raise AssertionError(f"{name}: {what} any-hit differs from the plain version on "
+                                 f"{int((h != h_p).sum())} rays")
+        if (r[t_max <= 0] >= 0).any() or h[t_any <= 0].any():
+            raise AssertionError(f"{name}: a dead lane (t_max 0) reported a hit ({what})")
+    if not ((ent_g <= ent8).all() and (any_ent_g <= any_ent8).all()):
+        raise AssertionError(f"{name}: the gate counts more tiles than the group rule")
+    n_mis = "not compared"
+    if ktab is not None:
+        t1, r1 = ktab.closest(o, d, t_max)
+        h2 = ktab.any_hit(o, d, t_any)
+        if not torch.equal(t4, t1):
+            raise AssertionError(f"{name}: K4 t not bit-equal to K1's on {int((t4 != t1).sum())} "
+                                 f"rays")
+        if not torch.equal(h4, h2):
+            raise AssertionError(f"{name}: K4 any-hit differs from K2 on {int((h4 != h2).sum())} "
+                                 f"rays")
+        n_mis, n_bad = non_tie_mismatches(ktab, kprim, r1, gtab, gprim, r4, o, d, t_max)
+        if n_bad:
+            raise AssertionError(f"{name}: K4 prims differ from K1's beyond exact-t ties on "
+                                 f"{n_bad} rays")
     hit = r4 >= 0
-    log(f"  {name}: {o.shape[0]} rays, {int(hit.sum())} closest hits, {int(h4.sum())} any hits, "
-        f"{int(diff.sum())} tie rows vs plain, {n_mis} tie prims vs K1 — K4 t bit-equal to its "
-        f"plain version and to K1, any-hit equal to its plain version and to K2")
-    out = {"max_abs_err": (t4[hit] - t_p[hit]).abs().max().item() if hit.any() else 0.0,
-           "any_max_abs_err": (h4.float() - h_p.float()).abs().max().item() if h4.numel() else 0.0,
-           "group_entered": int(ent8.sum()), "group_any_entered": int(any_ent8.sum()),
-           "n": o.shape[0], "live": int((t_max > 0).sum()), "any_live": int((t_any > 0).sum()),
-           "table_bytes": table_bytes(*c_args[3:])}
-    if plain_reps:
-        out["plain_ms"] = cuda_ms(lambda: G.tri_closest_hit_groups_plain(*c_args, **kw), plain_reps)
-        out["any_plain_ms"] = cuda_ms(lambda: G.tri_any_hit_groups_plain(*a_args, **kw),
-                                      plain_reps)
-    return out
+    log(f"  {name}: {o.shape[0]} rays, {int(hit.sum())} closest hits, {int(h4.sum())} any hits; "
+        f"K4, relaunched and baseline: t bit-equal to the plain version, 0 tie rows, any-hit "
+        f"equal; vs K1 / K2: {n_mis} tie prims; tiles group rule {int(ent8.sum())} / any "
+        f"{int(any_ent8.sum())}, gate {int(ent_g.sum())} / any {int(any_ent_g.sum())}")
+    return int(hit.sum())
 
 
 def bvh_soup(n_tris: int, n_sph: int, seed: int):
@@ -1063,11 +1086,12 @@ def main() -> int:
         return counters[walk], tuple(c for w, cs in counters.items() if w != walk for c in cs)
 
     def ran_alone(launches, walk):
-        """The path's K1 / K2 walk launched, the other walks and the plain
-        versions did not run on the card."""
+        """The path's K1 / K2 walk launched, the other walks, the group
+        kernel K4 (and its baseline) and the plain versions did not run on
+        the card."""
         need, off = walk_counters(walk)
         return min(launches[k] for k in need) > 0 and not any(launches[k] for k in off) \
-            and not calls["plain"]
+            and not any(launches[k] for k in GROUP_COUNTERS) and not calls["plain"]
 
     def forbid(fn):
         def wrapped(o, *a, **kw):
@@ -1419,50 +1443,97 @@ def main() -> int:
     as_t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
     check_group("soup5k/32768", gsoup, stab, as_t(gsoup_host.prim), as_t(stab_host.prim),
                 make_rays(1 << 15, 60, (0, 0, 0), 9.0, dev), G)
+    # t_max at each ray's own closest t; and the face-tie batch: first hits
+    # at exactly t_max in a cluster whose box_near is t_max (K1's per-ray
+    # walk, on any tables, and a strict gate lose them; the group rule keeps
+    # them), on K4's own tables
+    o_t, d_t, tm_t = make_rays(1 << 15, 61, (0, 0, 0), 9.0, dev)
+    t_tie, _ = G.tri_closest_hit_groups_plain(o_t, d_t, tm_t, gsoup.tris16, gsoup.caabb,
+                                              gsoup.saabb, gsoup.slab_aabb, **G.group_kw(gsoup))
+    check_group("soup5k/32768 t_max = hit t", gsoup, None, None, None,
+                (o_t, d_t, torch.where(t_tie < 1e30, t_tie, tm_t)), G)
+    ftab_host, face_rays, face_tie = PK.face_tie_batch(n_rays=1 << 15)
+    ftab = K.DeviceTables(ftab_host, dev)
+    f_hits = check_group("face-tie/32768", ftab, None, None, None,
+                         tuple(torch.from_numpy(a).to(dev) for a in face_rays), G)
+    f_t, _ = G.tri_closest_hit_groups(*(torch.from_numpy(a).to(dev) for a in face_rays),
+                                      ftab.tris16, ftab.caabb, ftab.saabb, ftab.slab_aabb,
+                                      **G.group_kw(ftab))
+    if not bool((f_t[torch.as_tensor(face_tie, device=dev)] == 4.0).all()):
+        raise AssertionError("face-tie: K4 lost a first hit at exactly t_max")
+    log(f"[probes] face-tie: {len(face_tie)} rays whose first hit is at exactly t_max = 4.0 in a "
+        f"cluster whose box_near is 4.0: K4 keeps each ({f_hits} closest hits)")
+    # coplanar triangles split over clusters: hits that fall below their
+    # cluster's box_near, which the gate's slack keeps (K1 may lose them)
+    ctab_host, co_rays = PK.coplanar_batch(n_quads=3000, n_rays=1 << 15, seed=3)
+    check_group("coplanar/32768", K.DeviceTables(ctab_host, dev), None, None, None,
+                tuple(torch.from_numpy(a).to(dev) for a in co_rays), G)
 
     K.reset_launches()  # the probe path's counts start here
     ab = {}
     for name in ("mesh10k_512", "mesh100k_512"):
         wl = Workload(config_scene(name), dev, tables=mtab if name == "mesh100k_512" else None)
-        ab[name] = PK.analyze(name, chunk, PROBE_DEPTH, "cuda", wl=wl, keep=(1, 2))
+        ab[name] = PK.analyze(name, chunk, PROBE_DEPTH, "cuda", wl=wl,
+                              stats_at=(0, 2) if name == "mesh10k_512" else ())
     ab_launches = dict(K.LAUNCHES)
     for s_ab in ab.values():
-        log(f"[probes] K1 (warp walk) / per-thread K1 / K4 A/B on {card}:\n" + PK.report(s_ab))
+        log(f"[probes] K4 / K4 baseline / K1 (warp walk) / per-thread K1 A/B on {card}:\n"
+            + PK.report(s_ab))
         PK.check(s_ab)
     log(f"[probes] A/B launches: {ab_launches}")
-    if min(ab_launches[k] for k in ("tri_closest_group", "tri_any_group", "tri_closest",
-                                    "tri_any", "tri_closest_thread", "tri_any_thread")) <= 0:
-        raise AssertionError("the probe path did not launch K4 and both K1 / K2 walks")
+    if min(ab_launches[k] for k in GROUP_COUNTERS + ("tri_closest", "tri_any",
+                                                     "tri_closest_thread", "tri_any_thread")) <= 0:
+        raise AssertionError("the probe path did not launch K4, its baseline and both K1 / K2 "
+                             "walks")
+    for name, s_ab in ab.items():
+        for r in s_ab["bounces"]:
+            where = f"{name} bounce {r['bounce']}"
+            for kind, new, old in (("closest", "k4_ms", "k4_rule_ms"),
+                                   ("any", "k4_any_ms", "k4_any_rule_ms")):
+                if r["bounce"] >= 1 and not r[new] < r[old]:
+                    raise AssertionError(f"{where}: K4 {kind} ({r[new]:.4f} ms) is not faster "
+                                         f"than its baseline ({r[old]:.4f} ms)")
+                if r["bounce"] == 0 and r[new] > 1.03 * r[old]:
+                    raise AssertionError(f"{where}: K4 {kind} ({r[new]:.4f} ms) is slower than "
+                                         f"1.03x its baseline ({r[old]:.4f} ms)")
 
-    # K4 at mesh10k's bounce 2 against its plain version; its bound from
-    # K1's per-ray entered tiles on the same rays (the function's least work)
+    # K4's bounds at mesh10k's bounces 0 and 2: the function's (K1's / K2's
+    # per-ray entered tiles of 64 rows on the same rays: the least work),
+    # the design's (the gate's tiles of 128 rows: the kernel's own work) and
+    # the group rule's (the baseline's work)
+    peak = RL.card_peak(dev)
     s10 = ab["mesh10k_512"]
     pair = s10["pair"]
-    o2, d2, tm2, tm2_s = s10["inputs"][2]
-    k4_10 = check_group("mesh10k bounce 2", pair.k4, pair.k1, pair.prim4, pair.prim1,
-                        (o2, d2, tm2), G, t_any=tm2_s, plain_reps=1)
-    k1t = pair.k1
-    _, _, ent1, _ = K.tri_closest_hit_tables(o2, d2, tm2, k1t.tris16, k1t.caabb, k1t.saabb,
-                                             k1t.slab_aabb, **k1t.kw, stats=True)
-    _, any_ent1 = plain["any"](o2, d2, tm2_s, k1t.tris16, k1t.caabb, k1t.saabb, k1t.slab_aabb,
-                               **k1t.kw, stats=True)
-    ent1, any_ent1 = int(ent1.sum()), int(any_ent1.sum())
-    k1_block = k1t.kw["block_t"]
-    k4c_b = bound(k4_10["n"], k4_10["live"], 8, k4_10["table_bytes"], ent1, k1_block,
-                  TRI_TEST_OPS)
-    k4a_b = bound(k4_10["n"], k4_10["any_live"], 1, k4_10["table_bytes"], any_ent1, k1_block,
-                  TRI_TEST_OPS)
+    k4_bytes = table_bytes(pair.k4.tris16, pair.k4.caabb, pair.k4.saabb, pair.k4.slab_aabb)
+    blk1, blk4 = pair.k1.kw["block_t"], pair.kw4["block_t"]
+    k4_bounds = {}
+    for r in (s10["bounces"][0], s10["bounces"][2]):
+        n, live, a_live = s10["rays"], r["active"], r["any_live"]
+        b_fn = bound(n, live, 8, k4_bytes, r["k1_tiles"], blk1, TRI_TEST_OPS)
+        b_gate = bound(n, live, 8, k4_bytes, r["gate_tiles"], blk4, TRI_TEST_OPS)
+        b_grp = bound(n, live, 8, k4_bytes, r["group_tiles"], blk4, TRI_TEST_OPS)
+        a_fn = bound(n, a_live, 1, k4_bytes, r["k2_tiles"], blk1, TRI_TEST_OPS)
+        a_gate = bound(n, a_live, 1, k4_bytes, r["gate_any_tiles"], blk4, TRI_TEST_OPS)
+        a_grp = bound(n, a_live, 1, k4_bytes, r["group_any_tiles"], blk4, TRI_TEST_OPS)
+        share = lambda tiles, ms: 100.0 * RL.tile_ops(tiles, blk4) / (ms * 1e-3) / peak["ops_per_s"]  # noqa: E731
+        k4_bounds[r["bounce"]] = (b_fn, a_fn)
+        log(f"[bounds] K4 at mesh10k's bounce-{r['bounce']} shape ({n} rays, {live} live) on "
+            f"{card}: closest {r['k4_ms']:.4f} ms, device {r['k4_dev_ms']:.4f} (baseline "
+            f"{r['k4_rule_ms']:.4f}, device {r['k4_rule_dev_ms']:.4f}; K1 {r['k1_ms']:.4f}; "
+            f"plain {r['plain_ms']:.1f}); function bound {b_fn[0]:.4f} ms ({b_fn[1]}; K1's "
+            f"{r['k1_tiles']} tiles of {blk1}), design bound {b_gate[0]:.4f} ms ({b_gate[1]}; the "
+            f"gate's {r['gate_tiles']} tiles of {blk4}), group rule {r['group_tiles']} tiles of "
+            f"{blk4} ({b_grp[0]:.4f} ms); the gate's tiles at {share(r['gate_tiles'], r['k4_ms']):.1f}% "
+            f"of the derived peak, the baseline's group tiles at "
+            f"{share(r['group_tiles'], r['k4_rule_ms']):.1f}%. Any {r['k4_any_ms']:.4f} ms, device "
+            f"{r['k4_any_dev_ms']:.4f} (baseline {r['k4_any_rule_ms']:.4f}, device "
+            f"{r['k4_any_rule_dev_ms']:.4f}; K2 {r['k2_ms']:.4f}; plain {r['any_plain_ms']:.1f}); "
+            f"function bound {a_fn[0]:.4f} ms ({a_fn[1]}; K2's {r['k2_tiles']} tiles of {blk1}), "
+            f"design bound {a_gate[0]:.4f} ms ({a_gate[1]}; the gate's {r['gate_any_tiles']}), "
+            f"group rule {r['group_any_tiles']} ({a_grp[0]:.4f} ms)")
     r2 = s10["bounces"][2]
-    log(f"[bounds] K4 at mesh10k's bounce-2 shape ({k4_10['n']} rays) on {card}: closest "
-        f"{r2['k4_ms']:.4f} ms (K1 {r2['k1_ms']:.4f}; plain {k4_10['plain_ms']:.3f}), bound "
-        f"{k4c_b[0]:.4f} ms ({k4c_b[1]}; K1's {ent1} entered tiles of {k1_block}; K4's group-"
-        f"granular count {k4_10['group_entered']} ray-tiles of {pair.kw4['block_t']} = "
-        f"{k4_10['group_entered'] // 8} group tiles); any {r2['k4_any_ms']:.4f} ms (K2 "
-        f"{r2['k2_ms']:.4f}; plain {k4_10['any_plain_ms']:.3f}), bound {k4a_b[0]:.4f} ms "
-        f"({k4a_b[1]}; K2's {any_ent1} entered tiles; K4's group-granular count "
-        f"{k4_10['group_any_entered']})")
+    k4c_b, k4a_b = k4_bounds[2]
 
-    peak = RL.card_peak(dev)
     log(f"[roofline] {card}: peak {peak['derivation']}")
     for name, sc in (("cornell_tex", scene), ("mesh10k_512", config_scene("mesh10k_512"))):
         log(RL.report(RL.analyze(name, chunk, PROBE_DEPTH, "cuda", peak=peak,
@@ -1863,10 +1934,18 @@ def main() -> int:
         entry("sphere_any_hit_thread", f"{sph_k}:256", k3_thread_launches[1],
               f_any["any_thread_max_abs_err"], f_any["any_thread_ms"], f_any["any_plain_ms"],
               k3a_b),
+        # K4 and its baseline at mesh10k's A/B bounce 2 (launches: the
+        # phase-8 A/B's); the bound the function's (K1's / K2's tiles)
         entry("tri_closest_hit_groups", f"{grp_k}:345", ab_launches["tri_closest_group"],
-              k4_10["max_abs_err"], r2["k4_ms"], k4_10["plain_ms"], k4c_b, grp_src),
+              r2["max_abs_err"], r2["k4_ms"], r2["plain_ms"], k4c_b, grp_src),
         entry("tri_any_hit_groups", f"{grp_k}:382", ab_launches["tri_any_group"],
-              k4_10["any_max_abs_err"], r2["k4_any_ms"], k4_10["any_plain_ms"], k4a_b, grp_src),
+              r2["any_max_abs_err"], r2["k4_any_ms"], r2["any_plain_ms"], k4a_b, grp_src),
+        entry("tri_closest_hit_group_rule", f"{grp_k}:345",
+              ab_launches["tri_closest_group_rule"], r2["rule_max_abs_err"], r2["k4_rule_ms"],
+              r2["plain_ms"], k4c_b, grp_src),
+        entry("tri_any_hit_group_rule", f"{grp_k}:382", ab_launches["tri_any_group_rule"],
+              r2["rule_any_max_abs_err"], r2["k4_any_rule_ms"], r2["any_plain_ms"], k4a_b,
+              grp_src),
         entry("slab_grid_probe", "tools/probe_slab_grid.py:34", p_launches, p_big[1], p_ms,
               p_plain_ms, p_b, "curry_pbrt_tpu_torch/csrc/slab_grid.cu"),
         # the BVH walks (no TPU counterpart: they replace a jnp while_loop) at

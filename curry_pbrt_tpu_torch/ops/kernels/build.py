@@ -117,9 +117,11 @@ ENTRY_POINTS = {
     "curry_tri_any_hit_thread": _TABLE_ARGS + [_P] * 2,
     "curry_sphere_closest_hit_thread": _TABLE_ARGS + [_P] * 3,
     "curry_sphere_any_hit_thread": _TABLE_ARGS + [_P] * 2,
-    # intersect_group.cu
+    # intersect_group.cu, the kernels and the baseline (_group_rule)
     "curry_tri_closest_hit_groups": _TABLE_ARGS + [_P] * 3,
     "curry_tri_any_hit_groups": _TABLE_ARGS + [_P] * 2,
+    "curry_tri_closest_hit_group_rule": _TABLE_ARGS + [_P] * 3,
+    "curry_tri_any_hit_group_rule": _TABLE_ARGS + [_P] * 2,
     # slab_grid.cu: tab, rays, slabs; n_slabs, slab_rows, block_rays, n; out, stream
     "curry_slab_grid": [_P] * 3 + [_I] * 4 + [_P] * 2,
     # bvh_walk.cu, the live-ray walk: o, d, t_max, nodes, refs, tris16, sph16;

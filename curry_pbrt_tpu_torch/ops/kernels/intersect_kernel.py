@@ -72,7 +72,8 @@ LAUNCHES = {"tri_closest": 0, "tri_closest_stats": 0, "tri_any": 0,
             "tri_closest_thread": 0, "tri_closest_stats_thread": 0, "tri_any_thread": 0,
             "sphere_closest": 0, "sphere_any": 0, "sphere_closest_thread": 0,
             "sphere_any_thread": 0,
-            "tri_closest_group": 0, "tri_any_group": 0, "slab_grid": 0,
+            "tri_closest_group": 0, "tri_any_group": 0, "tri_closest_group_rule": 0,
+            "tri_any_group_rule": 0, "slab_grid": 0,
             "bvh_closest": 0, "bvh_any": 0, "bvh_closest_thread": 0, "bvh_any_thread": 0}
 
 WARP = 32
@@ -328,6 +329,20 @@ def _box_enter(box, o, inv_d, t_best):
     return (tn <= tf) & (tn < t_best) & (tf > 0.0) & (t_best > 0.0)
 
 
+def _box_near(box, o, inv_d):
+    """_box_enter split at the bound (csrc/intersect.cuh box_near): each
+    ray's entry distance tn into the box, NaN where the box is never entered
+    whatever the bound, so that _box_enter(box, o, inv_d, b) ==
+    (_box_near(box, o, inv_d) < b) & (b > 0)."""
+    t0 = (box[0:3] - o) * inv_d
+    t1 = (box[3:6] - o) * inv_d
+    near = torch.minimum(t0, t1)
+    far = torch.maximum(t0, t1) * float(T_SCALE)
+    tn = torch.maximum(near[:, 0], torch.maximum(near[:, 1], near[:, 2]))
+    tf = torch.minimum(far[:, 0], torch.minimum(far[:, 1], far[:, 2]))
+    return torch.where((tn <= tf) & (tf > 0.0), tn, float("nan"))
+
+
 def _tile_test(rows, o, kz, sx, sy, sz, t_best):
     """Watertight test of rays (N,·) against table rows (B,16) → (N,B) t,
     FLOAT_MAX where there is no hit (padding rows never hit)."""
@@ -370,7 +385,7 @@ def _walk(saabb, slab_aabb, cps, use_supers, o, d, t_bound, visit, spread=_per_r
 
 
 def _closest_plain(tile, o, d, t_max, prims, caabb, saabb, slab_aabb, block, cps, use_supers,
-                   stats, spread=_per_ray):
+                   stats, spread=_per_ray, narrow=None):
     """The closest-hit walk of every plain version: per cluster, the rays
     that enter its box test all `block` rows against their best t frozen at
     the cluster's start — tile(rows, ids, t_best) → (len(ids), block) t,
@@ -379,7 +394,10 @@ def _closest_plain(tile, o, d, t_max, prims, caabb, saabb, slab_aabb, block, cps
     first hit. Returns (t, row) and, with stats, per-ray (entered, improved)
     int32 counts of the tiles each ray entered and of those that improved
     its best t. spread: see _walk (with the group spread, a ray counts
-    every tile its group tested)."""
+    every tile its group tested). narrow(c, inv_d, bound) → (N,) mask, where
+    given, keeps of the rays spread lets into cluster c those that test its
+    rows (the group kernel's per-ray gate); entered then counts those
+    tiles."""
     t_best = t_max.clone()
     idx = torch.full(t_max.shape, -1, dtype=torch.int32, device=o.device)
     entered = torch.zeros(t_max.shape, dtype=torch.int32, device=o.device)
@@ -388,6 +406,8 @@ def _closest_plain(tile, o, d, t_max, prims, caabb, saabb, slab_aabb, block, cps
 
     def visit(c, gate, inv_d):
         enter = gate & spread(_box_enter(caabb[c], o, inv_d, t_best))
+        if narrow is not None:
+            enter = enter & narrow(c, inv_d, t_best)
         ids = torch.nonzero(enter).squeeze(1)
         if ids.numel() == 0:
             return
@@ -408,10 +428,12 @@ def _closest_plain(tile, o, d, t_max, prims, caabb, saabb, slab_aabb, block, cps
 
 
 def _any_plain(tile, o, d, t_max, prims, caabb, saabb, slab_aabb, block, cps, use_supers, stats,
-               spread=_per_ray):
+               spread=_per_ray, narrow=None):
     """The any-hit walk of every plain version: a ray stops at its first
     cluster with any row hit within t_max. Returns (N,) bool and, with
-    stats, the per-ray int32 count of tiles entered (spread: see _walk)."""
+    stats, the per-ray int32 count of tiles entered (spread: see _walk;
+    narrow: see _closest_plain, called with each ray's bound, 0 once it
+    has hit)."""
     hit = torch.zeros(t_max.shape, dtype=torch.bool, device=o.device)
     entered = torch.zeros(t_max.shape, dtype=torch.int32, device=o.device)
     # rays already hit carry bound 0, which fails every later box test
@@ -419,6 +441,8 @@ def _any_plain(tile, o, d, t_max, prims, caabb, saabb, slab_aabb, block, cps, us
 
     def visit(c, gate, inv_d):
         enter = gate & spread(~hit & _box_enter(caabb[c], o, inv_d, t_max))
+        if narrow is not None:
+            enter = enter & narrow(c, inv_d, bound())
         ids = torch.nonzero(enter).squeeze(1)
         if ids.numel() == 0:
             return

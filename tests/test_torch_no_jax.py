@@ -43,7 +43,7 @@ def test_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for need in ('ops.kernels.sphere_kernel', 'ops.kernels.intersect_group',\n"
         "             'tools.workload', 'tools.roofline', 'tools.probe_granularity',\n"
-        "             'tools.probe_group_kernel', 'tools.probe_slab_grid',\n"
+        "             'tools.probe_group_kernel', 'tools.probe_group_walk', 'tools.probe_slab_grid',\n"
         "             'tools.probe_sort_cost', 'parallel.mesh'):\n"
         "    assert 'curry_pbrt_tpu_torch.' + need in names, (need, names)\n"
         "for name in names:\n"
