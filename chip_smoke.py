@@ -105,9 +105,11 @@ non-zero and no result line is printed:
                K2's tiles), the design's (the gate's tiles) and the group
                rule's;
                the roofline on cornell_tex and mesh10k; the granularity
-               probe on mesh10k; the slab-grid probe P at the JAX shape and
-               at 16,384 blocks x 7 slabs against its plain version (rtol
-               1e-5);
+               probe on mesh10k; the slab-grid probe P (csrc/slab_grid.cu:
+               the kernel, and the first port, its baseline)
+               at the JAX shape and at 16,384 blocks x 7 slabs against its
+               plain version (rtol 1e-5; the kernel's bit-equality with it
+               printed), the two timed in turns by cuda_ms and device_ms;
   9. grad    — the differentiable path on cornell_tex: (a) the triangle
                (tent) film at the headline, rendered twice — bit-equal, its
                mean within 3% of phase 5's box image; (b) gradients of the
@@ -144,6 +146,24 @@ non-zero and no result line is printed:
                and image sums within 1e-3, wall, seg/s, launches and peak
                device memory of each; (d) the scene at 128² through the
                kernels against its JAX anchor (ENV_ANCHOR);
+  11. distributed — the sharded paths of parallel/ (torch.distributed)
+               against the single-device ones: (a) a one-rank NCCL group in
+               this process (a file store under build/dist/), the headline
+               through multihost.render_distributed — bit-equal to phase
+               5's image, its wall beside phase 5's, the plan's K1 / K2 walk
+               alone; (c) phase 9 (c)'s config-4 step through
+               mesh.make_sharded_train_step at world size 1 from the texture
+               at 0.5 — the texel gradient bit-equal to make_train_step's
+               (phase 9 (c) step 1) and the same loss — then 3 steps with
+               falling loss, seconds per step (forward, backward, all-reduce)
+               and peak memory; (b) two rank processes sharing the card over
+               gloo (NCCL refuses two ranks on one card;
+               multihost.run_ranks, a time limit, a failed rank fails the
+               phase): the headline through render_distributed — both images
+               bit-equal to (a), each rank's wall and launches — and the
+               texel gradient at 64² (the headline's spp and depth) through
+               the sharded step within 1e-5 relative of the one-rank
+               gradient (the all-reduce sums in another order);
 and then prints the per-kernel JSON line and, last, the device line. Each
 phase prints its seconds.
 
@@ -153,6 +173,7 @@ Imports nothing of JAX. Run from the repository root's checkout.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -212,6 +233,54 @@ PROBE_DEPTH = 6  # bounces of the phase-8 workload
 # launches them
 GROUP_COUNTERS = ("tri_closest_group", "tri_any_group", "tri_closest_group_rule",
                   "tri_any_group_rule")
+
+# Phase 11 (b): one of two rank processes sharing the card over gloo. The
+# headline through render_distributed, then the gradient at the texture 0.5
+# of the MSE against phase 11's 64² target through the sharded step.
+RANK_CODE = """
+import json, sys, time
+import numpy as np
+import torch
+sys.path.insert(0, {repo!r})
+from curry_pbrt_tpu_torch.interop import params_from_numpy
+from curry_pbrt_tpu_torch.ops.kernels import intersect_kernel as K
+from curry_pbrt_tpu_torch.parallel.mesh import make_mesh, make_sharded_train_step
+from curry_pbrt_tpu_torch.parallel.multihost import render_distributed
+from curry_pbrt_tpu_torch.render import pixel_arrays, plan_render
+from curry_pbrt_tpu_torch.sceneio.compiler import compile_scene_file
+rank, init, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+t0 = time.time()
+img = render_distributed({scene!r}, {head!r}, coordinator=init, num_processes=2, process_id=rank,
+                         output=out + "_head.png", device="cuda", backend="gloo")
+torch.cuda.synchronize()
+wall = time.time() - t0
+launches = dict(K.LAUNCHES)
+np.save(f"{{out}}_head_{{rank}}.npy", img)
+scene = compile_scene_file({scene!r}, {small!r})
+plan = plan_render(scene, device="cuda")
+params = params_from_numpy(scene.init_params, "cuda")
+key = next(iter(params["textures"]))
+tex = params["textures"][key] = torch.full_like(params["textures"][key], 0.5).requires_grad_(True)
+target = torch.as_tensor(np.load(out + "_target64.npy"), device="cuda")
+step = make_sharded_train_step(plan, make_mesh(2, device="cuda"), torch.optim.SGD([tex], lr=0.0))
+torch.cuda.synchronize()
+t1 = time.time()
+loss = float(step(params, target, *pixel_arrays(plan)))
+step_wall = time.time() - t1
+np.save(f"{{out}}_grad64_{{rank}}.npy", tex.grad.cpu().numpy())
+torch.distributed.destroy_process_group()  # a gloo group left to the exit can abort it
+print(json.dumps({{"rank": rank, "wall_s": wall, "step_s": step_wall, "loss": loss,
+                  "launches": launches, "device": torch.cuda.current_device(),
+                  "peak_gib": torch.cuda.max_memory_allocated() / 2**30}}))
+"""
+
+
+def same_bits(a, b) -> bool:
+    """Two float32 arrays equal bit for bit (the sign of a zero included)."""
+    import numpy as np
+
+    a, b = (np.ascontiguousarray(x, dtype=np.float32) for x in (a, b))
+    return a.shape == b.shape and np.array_equal(a.view(np.uint32), b.view(np.uint32))
 
 
 def log(msg: str) -> None:
@@ -1169,6 +1238,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = head_launches = dict(K.LAUNCHES)
+    head_wall = wall
     head_img = img
     checksum = float(img.astype(np.float64).sum())
     seg_rel = abs(segments - ANCHOR_SEGMENTS) / ANCHOR_SEGMENTS
@@ -1542,23 +1612,52 @@ def main() -> int:
                       wl=Workload(config_scene("mesh10k_512"), dev))
     log(f"[granularity] {card}:\n" + PG.report(gran))
 
-    K.reset_launches()  # P's path: the probe at both shapes
+    K.reset_launches()  # P's path: the probe at both shapes, the kernel and its baseline
     p_small = PS.run(2, 3, "cuda")
     p_big = PS.run(16384, 7, "cuda")
     p_launches = K.LAUNCHES["slab_grid"]
-    if p_launches != 2:
-        raise AssertionError(f"the P probe launched its kernel {p_launches} times, not 2")
+    p_base_small = PS.run(2, 3, "cuda", kernel=PS.slab_grid_baseline)
+    p_base_big = PS.run(16384, 7, "cuda", kernel=PS.slab_grid_baseline)
+    p_base_launches = K.LAUNCHES["slab_grid_baseline"]
+    if p_launches != 2 or p_base_launches != 2:
+        raise AssertionError(f"the P probe launched its kernel {p_launches} times and the "
+                             f"baseline {p_base_launches}, not 2 each")
     p_in = PS.make_inputs(16384, 7, device=dev)
-    p_ms = cuda_ms(lambda: PS.slab_grid(*p_in), 20)
+    p_bits = torch.equal(PS.slab_grid(*p_in), PS.slab_grid_plain(*p_in))
+    p_ms, p_base_ms = turns(lambda: PS.slab_grid(*p_in), lambda: PS.slab_grid_baseline(*p_in), 50)
+    p_dev, p_base_dev = turns(lambda: PS.slab_grid(*p_in), lambda: PS.slab_grid_baseline(*p_in),
+                              50, timer=device_ms)
     p_plain_ms = cuda_ms(lambda: PS.slab_grid_plain(*p_in), 5)
+    # back to back, the 33.5 MB that P reads and writes stay in the 50 MB L2;
+    # cold: each launch after a 256 MB fill that evicts them, less the fill
+    p_flush = torch.empty(1 << 26, dtype=torch.float32, device=dev)
+
+    def after_flush(fn):
+        def run():
+            p_flush.fill_(0.0)
+            fn()
+        return run
+
+    fill_ms = device_ms(lambda: p_flush.fill_(0.0), 50)
+    p_cold, p_base_cold = turns(after_flush(lambda: PS.slab_grid(*p_in)),
+                                after_flush(lambda: PS.slab_grid_baseline(*p_in)), 50,
+                                timer=device_ms)
+    fill_ms = (fill_ms + device_ms(lambda: p_flush.fill_(0.0), 50)) / 2
+    p_cold, p_base_cold = p_cold - fill_ms, p_base_cold - fill_ms
+    del p_flush
     p_n, p_s = p_in[1].shape[1], 7
     # row 0 of the rays in, the output out, the slabs and one table entry
     # per slab; 65 operations per slab sum, 2 per (ray, slab)
     p_b = least_ms(p_n * 8 + p_s * (8 * 8 + 1) * 4, p_s * 65 + p_n * p_s * 2)
-    log(f"[P] {card}: 2 blocks x 3 slabs max |d| {p_small[1]:.3g} (rel {p_small[2]:.3g}), "
-        f"16384 blocks x 7 slabs max |d| {p_big[1]:.3g} (rel {p_big[2]:.3g}) vs plain (rtol "
-        f"{PS.RTOL}); {p_ms:.4f} ms (plain {p_plain_ms:.4f}), bound {p_b[0]:.4f} ms ({p_b[1]}); "
-        f"launches {p_launches}")
+    log(f"[P] {card}: 2 blocks x 3 slabs max |d| {p_small[1]:.3g} (rel {p_small[2]:.3g}; "
+        f"baseline {p_base_small[1]:.3g}), 16384 blocks x 7 slabs max |d| {p_big[1]:.3g} (rel "
+        f"{p_big[2]:.3g}; baseline {p_base_big[1]:.3g}, rel {p_base_big[2]:.3g}) vs plain (rtol "
+        f"{PS.RTOL}), bit-equal to plain at 16384 x 7: {p_bits}; in turns {p_ms:.4f} ms, device "
+        f"{p_dev:.4f}, device with a cold L2 {p_cold:.4f} (baseline, the first port: "
+        f"{p_base_ms:.4f}, device {p_base_dev:.4f}, cold {p_base_cold:.4f}; the 256 MB fill "
+        f"{fill_ms:.4f}); plain "
+        f"{p_plain_ms:.4f}; bound {p_b[0]:.4f} ms ({p_b[1]}); launches {p_launches} (baseline "
+        f"{p_base_launches})")
 
     # ---- 9. the differentiable path
     phases.start("9 grad")
@@ -1646,6 +1745,8 @@ def main() -> int:
         t0 = time.time()
         losses.append(float(step(params_h, target, po_h, px_h, times=times)))
         step_stats.append((time.time() - t0, times, float(tex.grad.abs().sum())))
+        if k == 0:  # make_train_step's gradient at the texture 0.5, for phase 11 (c)
+            step1_grad = tex.grad.clone()
     with torch.no_grad():
         img_3 = torch.as_tensor(render_plan(plan_h, params_h, show_progress=False).reshape(-1, 3),
                                 device=dev)
@@ -1876,6 +1977,147 @@ def main() -> int:
     if not np.isfinite(img).all() or seg_rel > SEG_RTOL or sum_rel > SUM_RTOL:
         raise AssertionError("mesh10k_env 128² disagrees with its JAX anchor")
 
+    # ---- 11. distributed: the sharded render and train step
+    phases.start("11 distributed")
+    import torch.distributed as dist
+
+    from curry_pbrt_tpu_torch.parallel.mesh import make_mesh, make_sharded_train_step
+    from curry_pbrt_tpu_torch.parallel.multihost import render_distributed, run_ranks
+
+    dist_dir = REPO / "build" / "dist"
+    dist_dir.mkdir(parents=True, exist_ok=True)
+    run_tag = f"{os.getpid()}_{time.time_ns()}"
+
+    def store(name):
+        """A fresh file store for one group's rendezvous."""
+        return f"file://{dist_dir / f'store_{name}_{run_tag}'}"
+
+    head_path = REPO / "scenes" / "cornell_tex.pbrt"
+    head_over = {"resolution": (res, res), "spp": spp, "max_depth": depth}
+    small_over = {"resolution": (64, 64), "spp": spp, "max_depth": depth}
+    dist.init_process_group("nccl", init_method=store("a"), world_size=1, rank=0)
+    try:
+        # (a) world size 1 over NCCL, in this process: the headline
+        mesh1 = make_mesh(1, device="cuda")
+        K.reset_launches()  # counts of the sharded path's run start here
+        plain_before = calls["plain"]
+        torch.cuda.synchronize()
+        t0 = time.time()
+        img_a = render_distributed(head_path, head_over, output=str(dist_dir / "head_nccl.png"),
+                                   device="cuda")
+        torch.cuda.synchronize()
+        wall_a = time.time() - t0
+        launches_a = dict(K.LAUNCHES)
+        a_equal = same_bits(img_a, head_img)
+        log(f"[dist] (a) world 1 over {dist.get_backend()}, render_distributed of cornell_tex "
+            f"{res}² {spp} spp depth {depth} on {card}: wall {wall_a:.3f} s (scene compile, plan, "
+            f"render, gather, PNG) vs phase 5's render_scene {head_wall:.3f} s (plan, render); "
+            f"bit-equal to phase 5's image: {a_equal} (max |Δ| "
+            f"{float(np.abs(img_a - head_img).max()):.3g}); launches {launches_a}, plain calls "
+            f"on CUDA {calls['plain'] - plain_before}")
+        if not a_equal:
+            raise AssertionError("(a) the world-1 NCCL image is not phase 5's, bit for bit")
+        if calls["plain"] != plain_before or not ran_alone(launches_a, ctab.plan):
+            raise AssertionError(f"(a) did not run through the plan's K1 / K2 ({ctab.plan} "
+                                 f"walk) alone")
+
+        # (c) world size 1: the config-4 step of phase 9 (c) through the
+        # sharded step, from the texture at 0.5
+        with torch.no_grad():
+            tex.fill_(0.5)
+        tex.grad = None
+        sstep = make_sharded_train_step(plan_h, mesh1, torch.optim.Adam([tex], lr=0.05))
+        K.reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        s_losses, s_stats = [], []
+        for k in range(3):
+            times = {}
+            torch.cuda.synchronize()
+            t0 = time.time()
+            s_losses.append(float(sstep(params_h, target, po_h, px_h, times=times)))
+            s_stats.append((time.time() - t0, times))
+            if k == 0:
+                c_bits = torch.equal(tex.grad, step1_grad)
+                c_rel = float((tex.grad - step1_grad).abs().max() / step1_grad.abs().max())
+        launches_c11 = dict(K.LAUNCHES)
+        with torch.no_grad():
+            img_3 = torch.as_tensor(
+                render_plan(plan_h, params_h, show_progress=False).reshape(-1, 3), device=dev)
+            s_losses.append(float(mse(img_3, slice(None))))
+        s_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        for k, (w, times) in enumerate(s_stats):
+            log(f"[dist] (c) world 1, sharded step {k + 1} on {card}: loss before "
+                f"{s_losses[k]:.6g}, {w:.3f} s (forward {times['forward_s']:.3f}, backward "
+                f"{times['backward_s']:.3f}, all-reduce {times['allreduce_s']:.4f})")
+        log(f"[dist] (c) world 1: texel gradient at 0.5 bit-equal to make_train_step's (phase 9 "
+            f"(c) step 1): {c_bits} (max rel {c_rel:.3g}); loss {s_losses[0]!r} vs "
+            f"{losses[0]!r}; losses {s_losses}; peak device memory {s_peak:.2f} GiB; launches "
+            f"{launches_c11}")
+        if not c_bits or s_losses[0] != losses[0]:
+            raise AssertionError("(c) the world-1 sharded step's gradient or loss is not "
+                                 "make_train_step's")
+        if not all(b < a for a, b in zip(s_losses, s_losses[1:])):
+            raise AssertionError(f"(c) the sharded step's loss did not fall: {s_losses}")
+        if not ran_alone(launches_c11, ctab.plan):
+            raise AssertionError("(c) did not run through the plan's K1 / K2 alone")
+
+        # the 1-rank gradient at 64² (the texture at 0.5, the MSE against the
+        # 64² render), for the two ranks of (b) to match
+        small_s = compile_scene_file(head_path, overrides=small_over)
+        plan64 = plan_render(small_s, device="cuda")
+        po64, px64 = pixel_arrays(plan64)
+        target64 = render_plan(plan64, show_progress=False).reshape(-1, 3)
+        stem = str(dist_dir / f"rank_{run_tag}")
+        np.save(stem + "_target64.npy", target64)
+        params64 = leaf_params(small_s.init_params, dev)
+        tex64 = params64["textures"][tex_key]
+        with torch.no_grad():
+            tex64.fill_(0.5)
+        tex64.requires_grad_(True)
+        step64 = make_sharded_train_step(plan64, mesh1, torch.optim.SGD([tex64], lr=0.0))
+        loss64 = float(step64(params64, torch.as_tensor(target64, device=dev), po64, px64))
+        g64 = tex64.grad.cpu().numpy()
+    finally:
+        dist.destroy_process_group()
+
+    # (b) two rank processes sharing the card over gloo: the headline, then
+    # the 64² gradient through the sharded step
+    del img_3
+    torch.cuda.empty_cache()
+    code = RANK_CODE.format(repo=str(REPO), scene=str(head_path), head=head_over,
+                            small=small_over)
+    t0 = time.time()
+    results = run_ranks(lambda r: [sys.executable, "-c", code, str(r), store("b"), stem], 2,
+                        timeout=600)
+    wall_b = time.time() - t0
+    reports = []
+    for r, (rc, out, err) in enumerate(results):
+        if rc != 0:
+            raise AssertionError(f"(b) rank {r} failed ({rc}):\n{out[-2000:]}\n{err[-4000:]}")
+        reports.append(json.loads(out.strip().splitlines()[-1]))
+    imgs_b = [np.load(f"{stem}_head_{r}.npy") for r in range(2)]
+    grads_b = [np.load(f"{stem}_grad64_{r}.npy") for r in range(2)]
+    b_equal = same_bits(imgs_b[0], imgs_b[1]) and same_bits(imgs_b[0], img_a)
+    g_rel = float(np.abs(grads_b[0] - g64).max() / np.abs(g64).max())
+    for rep in reports:
+        log(f"[dist] (b) rank {rep['rank']} of 2 on cuda:{rep['device']} ({card}), gloo: "
+            f"render_distributed of the headline {rep['wall_s']:.3f} s (scene compile, group "
+            f"join, plan, its slab, gather, PNG); the 64² sharded step {rep['step_s']:.3f} s, loss "
+            f"{rep['loss']:.6g}; peak device memory {rep['peak_gib']:.2f} GiB; launches "
+            f"{rep['launches']}")
+    log(f"[dist] (b) two ranks on one card: {wall_b:.1f} s for both processes; headline images "
+        f"equal to each other and bit-equal to (a): {b_equal}; 64² texel gradient (spp {spp}, "
+        f"depth {depth}) rank 0 vs rank 1 bit-equal: {same_bits(grads_b[0], grads_b[1])}, vs 1 "
+        f"rank max rel {g_rel:.3g} (≤ 1e-5); loss {reports[0]['loss']:.6g} vs 1 rank "
+        f"{loss64:.6g}")
+    if not b_equal:
+        raise AssertionError("(b) the two ranks' headline images are not (a)'s, bit for bit")
+    if not same_bits(grads_b[0], grads_b[1]) or not g_rel <= 1e-5:
+        raise AssertionError(f"(b) the 2-rank gradient differs from the 1-rank one by {g_rel:.3g}")
+    need, _ = walk_counters(ctab.plan)
+    if not all(rep["launches"][k] > 0 for rep in reports for k in need):
+        raise AssertionError("(b) a rank did not launch the plan's K1 / K2")
+
     phases.start()
     # ---- report
     src = "curry_pbrt_tpu_torch/csrc/intersect.cu"
@@ -1948,6 +2190,8 @@ def main() -> int:
               grp_src),
         entry("slab_grid_probe", "tools/probe_slab_grid.py:34", p_launches, p_big[1], p_ms,
               p_plain_ms, p_b, "curry_pbrt_tpu_torch/csrc/slab_grid.cu"),
+        entry("slab_grid_probe_baseline", "tools/probe_slab_grid.py:34", p_base_launches,
+              p_base_big[1], p_base_ms, p_plain_ms, p_b, "curry_pbrt_tpu_torch/csrc/slab_grid.cu"),
         # the BVH walks (no TPU counterpart: they replace a jnp while_loop) at
         # mesh10k's bvh bounce-2 shapes, their launches per mesh10k_512 bvh
         # pass (the per-thread walk, PR 7's A/B baseline: 0)

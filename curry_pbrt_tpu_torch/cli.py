@@ -3,7 +3,9 @@
 `python -m curry_pbrt_tpu_torch.cli scene.pbrt --device cuda` mirrors the
 JAX package's CLI (one positional scene path, prints the output filename)
 with an explicit render device. The default device is `cuda`, and it must
-be there: the port does not fall back to the CPU.
+be there: the port does not fall back to the CPU. To render one scene over
+several processes (one rank a card, or ranks sharing a card), launch
+`python -m curry_pbrt_tpu_torch.parallel.multihost` once per rank.
 """
 
 from __future__ import annotations
@@ -13,7 +15,8 @@ import argparse
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        prog="curry-pbrt-torch", description="pbrt-dialect path tracer (PyTorch + CUDA)"
+        prog="curry-pbrt-torch", description="pbrt-dialect path tracer (PyTorch + CUDA)",
+        epilog="over several processes: python -m curry_pbrt_tpu_torch.parallel.multihost",
     )
     ap.add_argument("scene", help="pbrt scene file")
     ap.add_argument("-o", "--output", help="output PNG path (default: scene Film filename)")

@@ -124,6 +124,7 @@ ENTRY_POINTS = {
     "curry_tri_any_hit_group_rule": _TABLE_ARGS + [_P] * 2,
     # slab_grid.cu: tab, rays, slabs; n_slabs, slab_rows, block_rays, n; out, stream
     "curry_slab_grid": [_P] * 3 + [_I] * 4 + [_P] * 2,
+    "curry_slab_grid_baseline": [_P] * 3 + [_I] * 4 + [_P] * 2,  # the first port
     # bvh_walk.cu, the live-ray walk: o, d, t_max, nodes, refs, tris16, sph16;
     # n, n_tris; g2, g3, g5, t_scale; live, n_live; t_out, ref_out / hit_out;
     # stream

@@ -73,7 +73,7 @@ LAUNCHES = {"tri_closest": 0, "tri_closest_stats": 0, "tri_any": 0,
             "sphere_closest": 0, "sphere_any": 0, "sphere_closest_thread": 0,
             "sphere_any_thread": 0,
             "tri_closest_group": 0, "tri_any_group": 0, "tri_closest_group_rule": 0,
-            "tri_any_group_rule": 0, "slab_grid": 0,
+            "tri_any_group_rule": 0, "slab_grid": 0, "slab_grid_baseline": 0,
             "bvh_closest": 0, "bvh_any": 0, "bvh_closest_thread": 0, "bvh_any_thread": 0}
 
 WARP = 32

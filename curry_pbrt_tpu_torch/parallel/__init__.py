@@ -1,1 +1,2 @@
-"""Inverse rendering: the train step (one device)."""
+"""Inverse rendering (the train step) and ray sharding over processes
+(torch.distributed: mesh.py; the launcher, multihost.py)."""

@@ -44,7 +44,8 @@ def test_port_imports_no_jax():
         "for need in ('ops.kernels.sphere_kernel', 'ops.kernels.intersect_group',\n"
         "             'tools.workload', 'tools.roofline', 'tools.probe_granularity',\n"
         "             'tools.probe_group_kernel', 'tools.probe_group_walk', 'tools.probe_slab_grid',\n"
-        "             'tools.probe_sort_cost', 'parallel.mesh'):\n"
+        "             'tools.probe_sort_cost', 'tools.scaling_bench', 'parallel.mesh',\n"
+        "             'parallel.multihost'):\n"
         "    assert 'curry_pbrt_tpu_torch.' + need in names, (need, names)\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n" + _NOTHING_OF_JAX
