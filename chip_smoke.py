@@ -164,6 +164,20 @@ non-zero and no result line is printed:
                texel gradient at 64² (the headline's spp and depth) through
                the sharded step within 1e-5 relative of the one-rank
                gradient (the all-reduce sums in another order);
+  12. stages and examples — (a) tools/profile_stages.py in this process
+               on the headline at N = 4,194,304 rays (3 repetitions a
+               timed run): its table (wall ms, device ms, device / wall,
+               launches, traversal launches per stage) with the card's
+               name and power limit, and its JSON line; every stage's
+               output finite; the intersect, predicate, NEE, full-bounce
+               and chunk stages launched the small-walk K1 / K2 (the plan's
+               walk) and no other walk, the other stages no traversal
+               kernel, and no plain version ran on the card; the chunk's
+               wall beside phase 5's pass wall over its 4 chunks; (b)
+               `python -m curry_pbrt_tpu_torch.examples.render_from_file
+               scenes/cornell_tex.pbrt --res 64 64 --spp 4` in a
+               subprocess (a time limit): its PNG byte-equal to the one
+               the port's cli writes for the same arguments;
 and then prints the per-kernel JSON line and, last, the device line. Each
 phase prints its seconds.
 
@@ -2117,6 +2131,56 @@ def main() -> int:
     need, _ = walk_counters(ctab.plan)
     if not all(rep["launches"][k] > 0 for rep in reports for k in need):
         raise AssertionError("(b) a rank did not launch the plan's K1 / K2")
+
+    # ---- 12. the per-stage profiler and the examples
+    phases.start("12 stages and examples")
+    from curry_pbrt_tpu_torch import cli
+    from curry_pbrt_tpu_torch.tools import profile_stages as PS
+
+    # (a) the stages at the headline's shape, on its plan's tables
+    plain_before = calls["plain"]
+    torch.cuda.reset_peak_memory_stats()
+    stages = PS.run("cornell_tex.pbrt", (res, res), spp, depth, n=PS.HEADLINE_N, reps=3,
+                    device="cuda")
+    log(f"[stages] {card}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(PS.table(stages))
+    log(PS.json_line(stages))
+    need, _ = walk_counters(ctab.plan)
+    traversing = {"intersect closest": need[:1], "predicate": need[1:], "NEE total": need,
+                  "full bounce (isect+NEE+sample)": need, "chunk": need}
+    for name, r in stages["stages"].items():
+        if not r["finite"]:
+            raise AssertionError(f"(a) stage {name!r}: its output is not finite")
+        launched = {k for k, v in r["traversal_launches"].items() if v}
+        if launched != set(traversing.get(name, ())):
+            raise AssertionError(f"(a) stage {name!r} launched {sorted(launched)}, not the "
+                                 f"{ctab.plan} walk's {list(traversing.get(name, ()))} alone")
+    if calls["plain"] != plain_before:
+        raise AssertionError("(a) a plain version ran on the card")
+    chunk = stages["stages"]["chunk"]
+    log(f"[stages] chunk: wall {chunk['wall_ms']:.3f} ms, device {chunk['device_ms']:.3f} ms a "
+        f"repetition; phase 5's pass wall over its 4 chunks {head_wall / 4 * 1e3:.3f} ms (plan "
+        f"included)")
+
+    # (b) the render_from_file example in its own process against the cli
+    ex_dir = REPO / "build" / "examples"
+    ex_dir.mkdir(parents=True, exist_ok=True)
+    ex_args = [str(REPO / "scenes" / "cornell_tex.pbrt"), "--res", "64", "64", "--spp", "4",
+               "--quiet"]
+    # run() kills the process at its time limit (communicate(timeout=...))
+    proc = subprocess.run([sys.executable, "-m", "curry_pbrt_tpu_torch.examples.render_from_file",
+                           *ex_args, "-o", str(ex_dir / "example.png")], cwd=REPO,
+                          env=dict(os.environ, PYTHONPATH=str(REPO)), capture_output=True,
+                          text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"(b) the render_from_file example failed: {proc.stderr[-2000:]}")
+    cli.main([*ex_args, "-o", str(ex_dir / "cli.png")])
+    ex_png, cli_png = (ex_dir / "example.png").read_bytes(), (ex_dir / "cli.png").read_bytes()
+    log(f"[examples] render_from_file (cornell_tex 64², 4 spp, on the card, own process) wrote "
+        f"{len(ex_png)} bytes; byte-equal to the cli's PNG: {ex_png == cli_png}")
+    if ex_png != cli_png:
+        raise AssertionError("(b) the example's PNG differs from the cli's")
 
     phases.start()
     # ---- report

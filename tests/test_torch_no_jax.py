@@ -45,7 +45,7 @@ def test_port_imports_no_jax():
         "             'tools.workload', 'tools.roofline', 'tools.probe_granularity',\n"
         "             'tools.probe_group_kernel', 'tools.probe_group_walk', 'tools.probe_slab_grid',\n"
         "             'tools.probe_sort_cost', 'tools.scaling_bench', 'parallel.mesh',\n"
-        "             'parallel.multihost'):\n"
+        "             'parallel.multihost', 'examples.render_from_file', 'tools.profile_stages'):\n"
         "    assert 'curry_pbrt_tpu_torch.' + need in names, (need, names)\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n" + _NOTHING_OF_JAX

@@ -202,3 +202,113 @@ def test_stats_count_entered_tiles():
     hit, any_entered = TS.sphere_any_hit_plain(*args, **kw, stats=True)
     assert torch.equal(hit, row >= 0)
     assert (any_entered <= entered).all()  # any-hit stops at its first hit
+
+
+# ---------------------------------------------------------------------------
+# tests/test_sphere_kernel.py on the port: the kernel-backed aggregate with
+# the sphere cluster traversal (its plain version on the CPU) against the
+# same aggregate on the dense (rays × spheres) sphere test, switched by the
+# aggregate's SPHERE_KERNEL_MIN threshold, with the JAX tests' tolerances.
+
+
+def _aggregates(monkeypatch, tris, sph):
+    """(dense, kernel) intersector triples over the same scene arrays."""
+    from curry_pbrt_tpu_torch.ops import intersect as isect
+    from curry_pbrt_tpu_torch.ops.kernels import aggregate
+
+    tri_arrays = isect.TriangleArrays(*tris)
+    sph_arrays = isect.SphereArrays(sph[1], sph[0], sph[2], sph[3])  # (o2w, w2o, radius, prim)
+    out = []
+    for threshold in (999999, 1):
+        monkeypatch.setattr(aggregate, "SPHERE_KERNEL_MIN", threshold)
+        out.append(aggregate.make_kernel_intersectors(tri_arrays, sph_arrays, "cpu",
+                                                      view_origin=np.zeros(3)))
+    return out
+
+
+def _no_tris():
+    z = np.zeros((1, 3), np.float32)
+    return z, z, z, np.full((1,), -1, np.int32)
+
+
+def _sphere_ray_batch(seed, n):
+    """The JAX test's rays: the first n // 16 lanes dead."""
+    o, d, t_max = _rays(seed, n)
+    t_max = np.full((n,), 1e30, np.float32)
+    t_max[: n // 16] = 0.0
+    return tuple(torch.from_numpy(a) for a in (o, d, t_max))
+
+
+def test_kernel_matches_dense_translation(monkeypatch):
+    """Translation-only object spaces: hit sets and winners agree exactly,
+    t within rtol 1e-6 (the JAX test's)."""
+    (i_d, p_d, tp_d), (i_k, p_k, tp_k) = _aggregates(monkeypatch, _no_tris(),
+                                                     _translated_spheres(0, 700))
+    o, d, t_max = _sphere_ray_batch(5, 2048)
+    hd, hk = i_d(o, d, t_max), i_k(o, d, t_max)
+    td, tk = hd.t.numpy(), hk.t.numpy()
+    np.testing.assert_array_equal(td < 1e30, tk < 1e30)
+    both = td < 1e30
+    assert both.sum() > 100
+    np.testing.assert_allclose(td[both], tk[both], rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(hd.prim.numpy(), hk.prim.numpy())
+    np.testing.assert_array_equal(p_d(o, d, t_max).numpy(), p_k(o, d, t_max).numpy())
+    (t2d, pr_d), (t2k, pr_k) = tp_d(o, d, t_max), tp_k(o, d, t_max)
+    np.testing.assert_allclose(t2d.numpy()[both], t2k.numpy()[both], rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(pr_d.numpy(), pr_k.numpy())
+
+
+@pytest.mark.parametrize("n_sph", [300, 1500])
+def test_kernel_matches_dense_affine(monkeypatch, n_sph):
+    """General affine object spaces: t within rtol 2e-4, hit and winner
+    flips only at tangency (at most max(2, N/500))."""
+    (i_d, p_d, _), (i_k, p_k, _) = _aggregates(monkeypatch, _no_tris(), _spheres(3, n_sph))
+    o, d, t_max = _sphere_ray_batch(5, 2048)
+    n = o.shape[0]
+    hd, hk = i_d(o, d, t_max), i_k(o, d, t_max)
+    td, tk = hd.t.numpy(), hk.t.numpy()
+    hit_d, hit_k = td < 1e30, tk < 1e30
+    assert int((hit_d != hit_k).sum()) <= max(2, n // 500)
+    both = hit_d & hit_k
+    assert both.sum() > 100
+    np.testing.assert_allclose(td[both], tk[both], rtol=2e-4)
+    assert int((hd.prim.numpy()[both] != hk.prim.numpy()[both]).sum()) <= max(2, n // 500)
+    assert int((p_d(o, d, t_max) != p_k(o, d, t_max)).sum()) <= max(2, n // 500)
+
+
+def test_kernel_with_tris_mixed(monkeypatch):
+    """The winner merge between the triangle and the sphere traversal
+    matches the dense-sphere merge."""
+    rng = np.random.default_rng(11)
+    nt = 80
+    p0 = rng.uniform(-8, 8, (nt, 3)).astype(np.float32)
+    p1 = p0 + rng.normal(size=(nt, 3)).astype(np.float32)
+    p2 = p0 + rng.normal(size=(nt, 3)).astype(np.float32)
+    w2o, o2w, radii, prim = _translated_spheres(7, 400)
+    (i_d, _, _), (i_k, _, _) = _aggregates(
+        monkeypatch, (p0, p1, p2, np.arange(nt, dtype=np.int32)), (w2o, o2w, radii, prim + nt))
+    o, d, t_max = _sphere_ray_batch(9, 1024)
+    hd, hk = i_d(o, d, t_max), i_k(o, d, t_max)
+    td, tk = hd.t.numpy(), hk.t.numpy()
+    np.testing.assert_array_equal(td < 1e30, tk < 1e30)
+    both = td < 1e30
+    np.testing.assert_allclose(td[both], tk[both], rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(hd.prim.numpy(), hk.prim.numpy())
+    assert (hk.prim.numpy() >= nt).any() and ((hk.prim.numpy() >= 0) & (hk.prim.numpy() < nt)).any()
+
+
+def test_sphere_tables_structure():
+    arrays = _spheres(13, 700)
+    tab = TS.build_sphere_tables(*arrays, view_origin=np.zeros(3))
+    rows = tab.row_sphere
+    assert sorted(rows[rows >= 0].tolist()) == list(range(700))  # a permutation, no loss
+    # every valid row's world center lies inside its cluster's AABB
+    o2w = arrays[1]
+    for c in range(tab.cluster_aabbs.shape[0]):
+        rr = rows[c * tab.block_s:(c + 1) * tab.block_s]
+        rr = rr[rr >= 0]
+        if len(rr) == 0:
+            continue
+        centers = o2w[rr][:, :3, 3]
+        assert np.all(centers >= tab.cluster_aabbs[c, 0:3] - 1e-4)
+        assert np.all(centers <= tab.cluster_aabbs[c, 3:6] + 1e-4)
