@@ -59,7 +59,9 @@ non-zero and no result line is printed:
                spherefield10k_256, mesh10k_512, mesh100k_512 and
                mesh600k_256 at their full bench configs: each planned once
                (its seconds printed on their own line: set-up, not render
-               time), a warm-up pass, then one timed pass with its wall,
+               time), a warm-up pass (its chunk eager, then the chunk
+               program recorded), then one timed pass, a replay, with its
+               wall (peak device memory over the warm-up and that pass),
                seg/s and launches; segments within 1e-4 and the image sum
                within 1e-3 relative of the JAX anchors; the sphere field
                must launch the plan's K3 walk alone (the warp walk; the
@@ -142,15 +144,18 @@ non-zero and no result line is printed:
                and both walks at mesh10k's bounce-2 shapes with their
                bound; (c)
                mesh10k_env_512 (tools/env_scene.py) through the warp K1 / K2
-               and through the BVH walk: each other's segments within 1e-4
-               and image sums within 1e-3, wall, seg/s, launches and peak
-               device memory of each; (d) the scene at 128² through the
+               and through the BVH walk, one eager pass each (a fresh
+               plan's one pass, as render_scene's): each other's segments
+               within 1e-4 and image sums within 1e-3, wall, seg/s,
+               launches and peak device memory of each; (d) the scene at 128² through the
                kernels against its JAX anchor (ENV_ANCHOR);
   11. distributed — the sharded paths of parallel/ (torch.distributed)
                against the single-device ones: (a) a one-rank NCCL group in
                this process (a file store under build/dist/), the headline
-               through multihost.render_distributed — bit-equal to phase
-               5's image, its wall beside phase 5's, the plan's K1 / K2 walk
+               through multihost.render_distributed (its eager chunks) —
+               bit-equal to phase 5's image (which phase 14 holds bit-equal
+               to the replayed one), its wall beside phase 5's, the plan's
+               K1 / K2 walk
                alone; (c) phase 9 (c)'s config-4 step through
                mesh.make_sharded_train_step at world size 1 from the texture
                at 0.5 — the texel gradient bit-equal to make_train_step's
@@ -196,6 +201,29 @@ non-zero and no result line is printed:
                every config, and the JAX anchors); each config's wall,
                seg/s, segments, checksum and its distances to the anchors,
                with the card's name and power limit, and the JSON line;
+  14. graph A/B — render_plan's chunk program (render.ChunkPrograms: each
+               chunk shape recorded once as a CUDA graph, then replayed)
+               against its eager loop (graph=False) on the headline,
+               spheres_direct_256, mesh10k_512, mesh100k_512, mesh600k_256,
+               spherefield10k_256, mesh10k_512 through intersector="bvh" and
+               mesh10k_env_512, each on one plan: an eager pass and two
+               replayed ones (the first records) with their peak allocated
+               and reserved device memory, then three turns of (eager,
+               replayed), each timed to a synchronise; every pass's image
+               bit-equal to the first (max |Δ| 0), its segments, launch
+               counts and sorted traversals equal; the walls, the recording
+               seconds (set-up), the programs and replays, and the device's
+               busy time in one profiled pass each way (a profiler session
+               a chunk) over the median wall; in each profiled pass, the
+               port's kernels counted among the card's events, each equal
+               to its wrapper's launch count (a replay's counts are the
+               recording's, added once a replay: the profiler shows the
+               kernels that really ran);
+               the copy of spherefield10k's params (8,556 members) into the
+               recorded tree timed; then phase 5's one-shot headline (a
+               fresh plan's one pass) both ways, in turns (the replayed one
+               pays for its recording; render_scene runs the eager one),
+               each bit-equal to phase 5's image;
 and then prints the per-kernel JSON line and, last, the device line. Each
 phase prints its seconds.
 
@@ -206,6 +234,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1012,6 +1041,156 @@ def grad_leaves(params):
     return [n for n, _ in named], [leaf for _, leaf in named]
 
 
+# The port's kernels (csrc/*.cu) as the profiler names them, demangled:
+# "void curry::(anonymous namespace)::closest_warp_kernel<curry::TriPrim,
+# true>(float const*, ...)". → (the LAUNCHES key of the wrapper that
+# launches it, the kernel's part of that launch) by port_kernel.
+PORT_KERNEL = re.compile(
+    r"^(?:void )?(curry::)?(?:\(anonymous namespace\)::)?"
+    r"(closest_warp_kernel|any_warp_kernel|small_kernel|walk_kernel|compact_kernel"
+    r"|closest_kernel|any_kernel|closest_group_kernel|any_group_kernel|closest_group_rule_kernel"
+    r"|any_group_rule_kernel|slab_grid_kernel|slab_grid_baseline_kernel)(<[^()]*>)?\(")
+
+
+def port_kernel(name: str):
+    """The profiler's name of a CUDA kernel → (LAUNCHES key, part) for a
+    kernel of the port, else None. The live-ray BVH walk is two kernels a
+    launch (parts "compact" and "walk"); every other wrapper launches one
+    (part "")."""
+    m = PORT_KERNEL.search(name)
+    if m is None:
+        return None
+    in_curry, fn, targs = m.group(1), m.group(2), m.group(3) or ""
+    flags = re.findall(r"\b(true|false)\b", targs)
+    prim = "sphere" if "SpherePrim" in targs else "tri"
+    # <Prim, STATS> of the closest-hit table walks
+    stats = "_stats" if flags[-1:] == ["true"] and fn.startswith("closest") else ""
+    if fn in ("closest_warp_kernel", "any_warp_kernel"):
+        return f"{prim}_{fn.split('_')[0]}{stats}", ""
+    if fn == "small_kernel":  # <ANY, STATS>
+        if flags[0] == "true":
+            return "tri_any_small", ""
+        return ("tri_closest_stats_small" if flags[1] == "true" else "tri_closest_small"), ""
+    if fn in ("walk_kernel", "compact_kernel"):  # <ANY>
+        return ("bvh_any" if flags[0] == "true" else "bvh_closest"), fn.split("_")[0]
+    if fn in ("closest_kernel", "any_kernel"):
+        if in_curry:  # intersect.cu's per-thread table walk
+            return f"{prim}_{fn.split('_')[0]}{stats}_thread", ""
+        return f"bvh_{fn.split('_')[0]}_thread", ""  # bvh_walk.cu's per-thread walk
+    return {"closest_group_kernel": "tri_closest_group", "any_group_kernel": "tri_any_group",
+            "closest_group_rule_kernel": "tri_closest_group_rule",
+            "any_group_rule_kernel": "tri_any_group_rule", "slab_grid_kernel": "slab_grid",
+            "slab_grid_baseline_kernel": "slab_grid_baseline"}[fn], ""
+
+
+def launched_kernels(launches: dict) -> dict:
+    """The port's kernels that launch counts stand for → {(key, part):
+    instances}, as port_kernel names them."""
+    want = {}
+    for key, n in launches.items():
+        parts = ("compact", "walk") if key in ("bvh_closest", "bvh_any") else ("",)
+        want.update({(key, part): n for part in parts if n})
+    return want
+
+
+def graph_ab(plan, turns: int = 3) -> dict:
+    """Phase 14 for one plan: render_plan through the plan's chunk program
+    (graph=True) against the eager loop (graph=False). An eager pass and
+    two replayed passes (the first records the programs), each after an
+    emptied cache with its peak device memory; one more eager pass (the
+    allocator's blocks back); then `turns` of (eager, replayed), each timed
+    to a synchronise; then one profiled pass each way, each chunk in its own
+    profiler session (the card's activity alone) and synchronised: the
+    kernel time over the path's median wall is the device's busy share, and
+    the port's kernels among the card's events must number the pass's
+    launch counts. A session of one chunk keeps every record; one over a
+    whole replayed headline pass (50,000 kernels) now and then lost some
+    on the H100.
+    → the walls, memory, busy time, those kernel counts, the program's
+    recording seconds and replays, the first pass's image, segments and
+    launches, and whether every pass was the first bit for bit, with its
+    segments, launches and sorted traversals."""
+    import numpy as np
+    import torch
+
+    from curry_pbrt_tpu_torch import render as R
+    from curry_pbrt_tpu_torch.ops.kernels import intersect_kernel as K
+    from curry_pbrt_tpu_torch.ops.kernels.aggregate import RAY_SORTS
+    from curry_pbrt_tpu_torch.profile_render import _device_ms
+    from curry_pbrt_tpu_torch.render import render_plan
+
+    dev = plan.device
+
+    def one(graph):
+        K.reset_launches()
+        RAY_SORTS["traversals"] = 0
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        img, segments = render_plan(plan, show_progress=False, count_rays=True, graph=graph)
+        torch.cuda.synchronize(dev)
+        return dict(wall=time.perf_counter() - t0, img=img, segments=segments,
+                    launches=dict(K.LAUNCHES), sorts=RAY_SORTS["traversals"])
+
+    def with_peak(graph, n):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        runs = [one(graph) for _ in range(n)]
+        return runs, (torch.cuda.max_memory_allocated(dev) / 2**30,
+                      torch.cuda.max_memory_reserved(dev) / 2**30)
+
+    runs, eager_mem = with_peak(False, 1)
+    warm, graph_mem = with_peak(True, 2)
+    runs += warm + [one(False)]
+    walls = {False: [], True: []}
+    for _ in range(turns):
+        for graph in (False, True):
+            runs.append(one(graph))
+            walls[graph].append(runs[-1]["wall"])
+    def profiled(graph):
+        """one(graph) with each chunk (the eager chunk function, or a
+        program's run) inside its own profiler session → the card's kernel
+        ms, device ops, port kernels and kernel names over the pass."""
+        owner, attr = (R.ChunkPrograms, "run") if graph else (R, "_render_chunk")
+        real = getattr(owner, attr)
+        acc = dict(ms=0.0, device_ops=0, kernels={}, names=set())
+
+        def chunk(*a, **kw):
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                out = real(*a, **kw)
+                torch.cuda.synchronize(dev)
+            for e in prof.key_averages():
+                if e.device_type != torch.autograd.DeviceType.CUDA:
+                    continue
+                acc["ms"] += _device_ms(e)
+                acc["device_ops"] += e.count
+                acc["names"].add(e.key)
+                if port_kernel(e.key):
+                    acc["kernels"][port_kernel(e.key)] = (
+                        acc["kernels"].get(port_kernel(e.key), 0) + e.count)
+            return out
+
+        setattr(owner, attr, chunk)
+        try:
+            runs.append(one(graph))
+        finally:
+            setattr(owner, attr, real)
+        return dict(acc, wall=runs[-1]["wall"], names=sorted(acc["names"]),
+                    matched=acc["kernels"] == launched_kernels(runs[-1]["launches"]))
+
+    busy = {graph: profiled(graph) for graph in (False, True)}
+    ref = runs[0]
+    equal = all(same_bits(r["img"], ref["img"]) and r["segments"] == ref["segments"]
+                and r["launches"] == ref["launches"] and r["sorts"] == ref["sorts"]
+                for r in runs[1:])
+    median = {g: sorted(w)[len(w) // 2] for g, w in walls.items()}
+    return dict(walls=walls, median=median, eager_mem=eager_mem, graph_mem=graph_mem, busy=busy,
+                busy_share={g: busy[g]["ms"] / 1e3 / median[g] for g in busy},
+                record_s=plan.programs.record_s, programs=sorted(plan.programs.programs),
+                replays=plan.programs.replays, img=ref["img"], segments=ref["segments"],
+                launches=ref["launches"], sorts=ref["sorts"], equal=equal,
+                max_abs=max(float(np.abs(r["img"] - ref["img"]).max()) for r in runs[1:]))
+
+
 def main() -> int:
     t_start = time.time()
     import numpy as np
@@ -1242,6 +1421,8 @@ def main() -> int:
 
     def capturing(fn, key):
         def wrapped(o, d, t_max, *a, **kw):
+            if torch.cuda.is_current_stream_capturing():  # a chunk program's recording
+                return fn(o, d, t_max, *a, **kw)
             call = capture["calls"][key] = capture["calls"].get(key, 0) + 1
             want = capture.get(key)
             if want == "all" or (want and call in want):
@@ -1312,13 +1493,15 @@ def main() -> int:
             f"(largest {max(len(f.members) for f in plan.ctx.families)} members)")
         capture.clear()
         capture.update(capture_at.get(name, {}), config=name, calls={})
-        render_plan(plan, show_progress=False)  # warm-up
+        # the peak spans the warm-up: a replay's working set lives in the
+        # programs' pool, which the allocator counts only while recording
+        torch.cuda.reset_peak_memory_stats(dev)
+        render_plan(plan, show_progress=False)  # warm-up: its chunk eager (captured), recorded
         torch.cuda.synchronize()
         capture.clear()
         capture.update(config=None, calls={})
         K.reset_launches()  # counts of this path's run start here
         AG.RAY_SORTS["traversals"] = 0
-        torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.time()
         img, segments = render_plan(plan, show_progress=False, count_rays=True)
         torch.cuda.synchronize()
@@ -1875,6 +2058,8 @@ def main() -> int:
 
     def capturing_bvh(fn, key, want):
         def wrapped(b, o, d, t_max):
+            if torch.cuda.is_current_stream_capturing():  # a chunk program's recording
+                return fn(b, o, d, t_max)
             calls_k = bvh_capture["calls"]
             call = calls_k[key] = calls_k.get(key, 0) + 1
             if bvh_capture["on"] and call == want:
@@ -1898,11 +2083,11 @@ def main() -> int:
         torch.cuda.synchronize()
         t_plan = time.time() - t0
         bvh_capture.update(on=name == "mesh10k_512", calls={})
-        render_plan(plan, show_progress=False)  # warm-up
+        torch.cuda.reset_peak_memory_stats(dev)  # over the warm-up, as in phase 6
+        render_plan(plan, show_progress=False)  # warm-up: its chunk eager (captured), recorded
         torch.cuda.synchronize()
         bvh_capture["on"] = False
         K.reset_launches()  # counts of this path's run start here
-        torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.time()
         img, segments = render_plan(plan, show_progress=False, count_rays=True)
         torch.cuda.synchronize()
@@ -1962,7 +2147,8 @@ def main() -> int:
         K.reset_launches()  # counts of this path's run start here
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.time()
-        img, segments = render_plan(plan, show_progress=False, count_rays=True)
+        # one pass of a fresh plan, so eager as render_scene's (phase 14 replays this config)
+        img, segments = render_plan(plan, show_progress=False, count_rays=True, graph=False)
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = dict(K.LAUNCHES)
@@ -2281,6 +2467,83 @@ def main() -> int:
                     for n, s in earlier.items())
         + f"; {bench.FULL} {configs[bench.FULL]['checksum_hex']}")
     log(f"[bench] JSON line: {out_lines[-1]}")
+
+    # ---- 14. graph A/B: render_plan's chunk program against its eager loop
+    phases.start("14 graph A/B")
+    from curry_pbrt_tpu_torch.interop import params_from_numpy
+
+    captured.clear()  # phase 7's rays
+    torch.cuda.empty_cache()
+    ab_configs = [("headline", head, "kernel")]
+    ab_configs += [(name, config_scene(name), "kernel") for name in CONFIGS]
+    ab_configs += [("mesh10k_512 bvh", config_scene("mesh10k_512"), "bvh"),
+                   ("mesh10k_env_512", env_sc, "kernel")]
+    for name, sc, inter in ab_configs:
+        t0 = time.time()
+        plan = plan_render(sc, device="cuda", intersector=inter)
+        torch.cuda.synchronize()
+        t_plan = time.time() - t0
+        r = graph_ab(plan)
+        busy = "; ".join(
+            f"{path} {r['busy'][g]['ms']:.1f} ms = {r['busy_share'][g]:.1%} of the median wall "
+            f"({r['busy'][g]['device_ops']} device ops, profiled wall {r['busy'][g]['wall']:.4f} s "
+            f"with a synchronise a chunk)"
+            for g, path in ((False, "eager"), (True, "replayed")))
+        counted = "; ".join(
+            f"{path} " + ", ".join(f"{k}{'.' + part if part else ''} {n}"
+                                   for (k, part), n in sorted(r["busy"][g]["kernels"].items()))
+            for g, path in ((False, "eager"), (True, "replayed")))
+        log(f"[graph] {name} ({inter}) on {card}: plan {t_plan:.2f} s, recording "
+            f"{r['record_s']:.3f} s (set-up; programs {r['programs']}, {r['replays']} replays "
+            f"in 6 passes); walls eager {r['walls'][False]} (median "
+            f"{r['median'][False]:.4f} s), replayed {r['walls'][True]} (median "
+            f"{r['median'][True]:.4f} s): replayed / eager "
+            f"{r['median'][True] / r['median'][False]:.3f}; "
+            f"{r['segments']} segments ({r['segments'] / r['median'][True]:.4g} seg/s replayed); "
+            f"every pass bit-equal to the first with its segments, launches and sorts: "
+            f"{r['equal']} (max |Δ| {r['max_abs']:.3g}); launches a pass "
+            f"{ {k: v for k, v in r['launches'].items() if v} }, sorted traversals {r['sorts']}; "
+            f"device busy: {busy}; peak device memory allocated / reserved: eager "
+            f"{r['eager_mem'][0]:.3f} / {r['eager_mem'][1]:.3f} GiB, recording + replay "
+            f"{r['graph_mem'][0]:.3f} / {r['graph_mem'][1]:.3f} GiB")
+        log(f"[graph] {name}: the port's kernels among the card's events of each profiled pass "
+            f"(a profiler session a chunk): "
+            f"{counted}; each equal to the pass's launch counts: eager "
+            f"{r['busy'][False]['matched']}, replayed {r['busy'][True]['matched']}")
+        if not (r["busy"][False]["matched"] and r["busy"][True]["matched"]):
+            raise AssertionError(f"{name}: the kernels that ran on the card are not the launches "
+                                 f"the wrappers counted; the card's kernels: "
+                                 f"{r['busy'][False]['names'] + r['busy'][True]['names']}")
+        if not r["equal"] or not np.isfinite(r["img"]).all():
+            raise AssertionError(f"{name}: a replayed pass is not the eager loop's, bit for bit, "
+                                 f"with its segments, launches and sorts")
+        if name.startswith("spherefield"):
+            # the params copy into the recorded tree, once a render_plan call
+            params = params_from_numpy(sc.init_params, dev)
+            n_leaves = len(plan.programs.leaves)
+            copy_ms = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                plan.programs.load(params)
+                torch.cuda.synchronize()
+                copy_ms.append((time.perf_counter() - t0) * 1e3)
+            log(f"[graph] {name}: the params tree's copy into the recorded tree ({n_leaves} "
+                f"leaves, {max(len(f.members) for f in plan.ctx.families)} members in its family; "
+                f"check + torch._foreach_copy_ to a synchronise), five in a row: {copy_ms} ms")
+        del plan
+    one_shot = {False: [], True: []}
+    for graph in (True, False, False, True):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        img = render_plan(plan_render(head, device="cuda"), show_progress=False, graph=graph)
+        torch.cuda.synchronize()
+        one_shot[graph].append(time.time() - t0)
+        if not same_bits(img, head_img):
+            raise AssertionError(f"the one-shot headline (graph={graph}) is not phase 5's image")
+    log(f"[graph] one-shot headline, a fresh plan's one render_plan pass (plan, first chunk "
+        f"eager, recording, replays; render_scene's eager pass) on {card}: replayed {one_shot[True]} s, eager {one_shot[False]} s; all four "
+        f"bit-equal to phase 5's image")
 
     phases.start()
     # ---- report

@@ -20,7 +20,10 @@ set-up, not timed), one warm-up pass, then the config's timed passes, the
 median reported. A pass is render.render_plan(plan, count_rays=True): it
 moves the params tree to the device (as the JAX bench hands numpy params to
 its jitted function every pass), renders the plan's chunks and reads the
-image back, and it ends in a synchronise. checksum = the image's float64
+image back, and it ends in a synchronise. On the card the chunks run
+through the plan's chunk program (render.ChunkPrograms), which the warm-up
+pass records, as the JAX bench's warm-up compiles: every timed pass
+replays. checksum = the image's float64
 sum, rounded to 0.1 as the JAX bench's. Two keys the JAX bench lacks:
 checksum_hex, the unrounded sum (float.hex), so that two runs can be held
 equal to the bit; and, on the card, peak_device_gib, the peak device

@@ -178,8 +178,10 @@ def scrambled_radical_inverse(x, dim: int, perms, max_index=None):
         digit_count = torch.where(nz, digit_count + 1, digit_count)
         w = w * Float(1.0 / base)
     inv_base = Float(1.0 / base)
+    # the base as a 0-d tensor made on x's device: torch.tensor(..., device=)
+    # would copy it from the host, a sync that a CUDA graph cannot record
     inv_base_n = torch.pow(
-        torch.tensor(float(base), dtype=torch.float32, device=x.device),
+        torch.full((), float(base), dtype=torch.float32, device=x.device),
         -digit_count.to(torch.float32),
     )
     tail = inv_base * Float(float(c)) / (Float(1.0) - inv_base)  # π(0) = c

@@ -11,7 +11,9 @@ share of the wall, the number of kernel launches, and the top ops by self
 device time — PyTorch ops (`aten::*`) and the port's own kernels
 (`curry::*`). --passes N then times N unprofiled passes; --sort-compare
 times unprofiled passes with the aggregate's ray sort on and off, in the
-order on, off, off, on.
+order on, off, off, on. Every pass runs render_plan's eager loop
+(graph=False), so that the profiler sees each op; chip_smoke.py phase 14
+measures the replayed chunk program (render.ChunkPrograms) against it.
 
 --grad profiles one gradient pass of the inverse-rendering step instead
 (parallel/mesh.py: the image MSE against the warm-up render, the scene's
@@ -49,7 +51,7 @@ def _device_ms(evt) -> float:
 def _timed(plan) -> tuple:
     torch.cuda.synchronize()
     t0 = time.time()
-    img, segments = render_plan(plan, show_progress=False, count_rays=True)
+    img, segments = render_plan(plan, show_progress=False, count_rays=True, graph=False)
     torch.cuda.synchronize()
     return time.time() - t0, segments, float(img.astype("float64").sum())
 

@@ -9,16 +9,27 @@ into one full-film (film, weight) pair that every chunk adds into (triangle
 film). The host enqueues work and reads back only the finished image (and
 the NaN and segment counts).
 
+On the card, render_plan runs its chunks through the plan's chunk program
+(ChunkPrograms, the counterpart of the JAX package's one-dispatch
+`_render_all` / `_render_all_splat`): each chunk shape's launches recorded
+once as a CUDA graph and replayed for every later chunk and pass of the
+plan; `graph=False` runs the eager loop, the A/B baseline. render_scene,
+whose plan lives for one pass, runs the eager loop.
+The CPU has no graphs and always runs the eager loop.
+
 `_render_chunk` and `_render_chunk_splat` are differentiable with respect
 to the params leaves that require grad (geometry stops at the traversal);
-`render_scene` and `render_plan`, which return numpy, run without a graph.
+`render_scene` and `render_plan`, which return numpy, run without an
+autograd graph.
 """
 
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from functools import partial
+from itertools import zip_longest
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -39,8 +50,9 @@ from curry_pbrt_tpu_torch.ops.halton import (
     make_halton_config,
     make_permutations,
 )
-from curry_pbrt_tpu_torch.ops.kernels.aggregate import make_kernel_intersectors
+from curry_pbrt_tpu_torch.ops.kernels.aggregate import RAY_SORTS, make_kernel_intersectors
 from curry_pbrt_tpu_torch.ops.kernels.bvh_kernel import make_bvh_intersectors
+from curry_pbrt_tpu_torch.ops.kernels.intersect_kernel import LAUNCHES
 from curry_pbrt_tpu_torch.sceneio.compiler import Scene, compile_scene_file
 from curry_pbrt_tpu_torch.utils.imageio import write_png
 from curry_pbrt_tpu_torch.utils.logging import get_logger, progress
@@ -137,6 +149,8 @@ class RenderPlan:
     chunk_pixels: int
     dim_base: int
     device: torch.device
+    # render_plan's recorded chunk programs on the card, made at first use
+    programs: Optional["ChunkPrograms"] = field(default=None, repr=False)
 
     def max_delta_lobes(self) -> int:
         """The most delta lobes of any shaded material (0: direct lighting
@@ -189,12 +203,14 @@ def _chunk_sample_radiance(plan: RenderPlan, params, pix_offsets, pix_xy):
         fam.stack_params(params)
     spp = scene.settings.spp
     C = pix_offsets.shape[0]
-    offs = torch.repeat_interleave(pix_offsets, spp)
+    # each pixel's value spp times (repeat_interleave by an expand: the
+    # tensor-repeats form reads its output size back to the host)
+    offs = pix_offsets[:, None].expand(C, spp).reshape(-1)
     sample_idx = torch.arange(spp, dtype=torch.int64, device=pix_offsets.device).repeat(C)
     indices = halton_indices(offs, sample_idx, cfg)
 
     jitter = halton_sample_2d(indices, 0, cfg, plan.perms) - 0.5
-    film_xy = torch.repeat_interleave(pix_xy, spp, dim=0) + jitter
+    film_xy = pix_xy[:, None].expand(C, spp, 2).reshape(-1, 2) + jitter
     lens_u = halton_sample_2d(indices, 2, cfg, plan.perms) if scene.camera.has_lens else None
     o, d = generate_rays(scene.camera, film_xy, lens_u)
     if scene.settings.integrator == "path":
@@ -218,16 +234,24 @@ def _render_chunk(plan: RenderPlan, params, pix_offsets, pix_xy):
     return means, bad, segments
 
 
+def _chunk_taps(plan: RenderPlan, params, pix_offsets, pix_xy):
+    """One chunk's tent-filter taps, before the splat: → (radiance (4M,3),
+    pixel ids (4M,) int32, weights (4M,) — F.triangle_taps' —,
+    dropped-NaN-sample count, traced segments), all of fixed shape."""
+    radiance, film_xy, segments = _chunk_sample_radiance(plan, params, pix_offsets, pix_xy)
+    xres, yres = plan.scene.settings.resolution
+    rad4, ids4, w4 = F.triangle_taps(film_xy, radiance, xres, yres)
+    n_bad = torch.sum(torch.any(torch.isnan(radiance), dim=-1))
+    return rad4, ids4, w4, n_bad, segments
+
+
 def _render_chunk_splat(plan: RenderPlan, params, pix_offsets, pix_xy, n_pixels: int):
     """One chunk's FULL-FILM tent-splat contribution: → (film (n_pixels,3),
     wsum (n_pixels,), dropped-NaN-sample count, traced segments). A
     sample's footprint may cross chunk edges, so each chunk adds into a
     whole-film pair, which the caller sums over chunks."""
-    radiance, film_xy, segments = _chunk_sample_radiance(plan, params, pix_offsets, pix_xy)
-    xres, yres = plan.scene.settings.resolution
-    rad4, ids4, w4 = F.triangle_taps(film_xy, radiance, xres, yres)
+    rad4, ids4, w4, n_bad, segments = _chunk_taps(plan, params, pix_offsets, pix_xy)
     film, wsum = F.filter_splat(rad4, ids4, w4, n_pixels)
-    n_bad = torch.sum(torch.any(torch.isnan(radiance), dim=-1))
     return film, wsum, n_bad, segments
 
 
@@ -258,6 +282,201 @@ def pixel_arrays(plan: RenderPlan):
             torch.as_tensor(px.reshape(-1, 2)[:n_pixels], device=plan.device))
 
 
+# ---------------------------------------------------------------------------
+# the chunk program
+
+
+def _record_cuda_graph(fn, device: torch.device, pool):
+    """Record fn() as a CUDA graph, on a side stream and in the memory pool
+    `pool` (torch.cuda.graph_pool_handle()): fn runs once as Python while
+    the card records its launches, and computes nothing until the first
+    replay. → (replay, fn's
+    outputs, which every replay overwrites in place). A host sync in fn
+    fails the recording, which raises ("thread_local": a sync of this
+    thread fails it, a call of another thread, NCCL's watchdog say, does
+    not); the side stream is left either way. The caching allocator's free
+    blocks go back to the card first (as torch.cuda.graph does), so that
+    the graph's pool does not sit beside the eager chunk's cached one."""
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    with torch.cuda.device(device), torch.cuda.stream(torch.cuda.Stream(device)):
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        try:
+            outs = fn()
+        finally:
+            graph.capture_end()
+    return graph.replay, outs
+
+
+def _recorder(device: torch.device):
+    """ChunkPrograms' recording seam, record(fn) → (replay, outputs):
+    _record_cuda_graph on a CUDA device, every recording of this recorder
+    in one memory pool; None on the CPU, which has no graphs (its chunk
+    loop is eager). The programs of a plan share its pool: they replay one
+    at a time on one stream, and each replay's outputs are read before the
+    next, so a working set the size of one chunk's serves them all."""
+    if device.type != "cuda":
+        return None
+    return partial(_record_cuda_graph, device=device, pool=torch.cuda.graph_pool_handle())
+
+
+# What a chunk counts on the host: kernel launches and sorted traversals.
+_COUNTERS = (LAUNCHES, RAY_SORTS)
+
+
+def _param_leaves(tree, path=()):
+    """[(path, tensor)] of a params tree, keys in sorted order."""
+    out = []
+    for k in sorted(tree, key=str):
+        v = tree[k]
+        if isinstance(v, dict):
+            out += _param_leaves(v, path + (str(k),))
+        else:
+            out.append((path + (str(k),), v))
+    return out
+
+
+def _layout(leaves):
+    return [(path, tuple(t.shape), t.dtype, t.device) for path, t in leaves]
+
+
+def _tree(leaves):
+    """The params tree of [(path, tensor)] leaves."""
+    tree = {}
+    for path, t in leaves:
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = t
+    return tree
+
+
+@dataclass
+class _Program:
+    replay: Callable[[], None]
+    pix_offsets: torch.Tensor  # static inputs: (C,) int64 and (C, 2) float32
+    pix_xy: torch.Tensor
+    outs: tuple  # static outputs, overwritten by every replay
+    counts: list  # [(counter dict, key, count)] that a replay adds
+
+
+class ChunkPrograms:
+    """render_plan's chunk program on the card: the counterpart of the JAX
+    package's one-dispatch render, `_render_all`
+    (curry_pbrt_tpu/render.py:294, a `lax.map` over the box film's chunks)
+    and `_render_all_splat` (:320, a `lax.scan` carrying the tent film),
+    which XLA compiles once and dispatches once.
+
+    A chunk's launches are recorded once as a CUDA graph and replayed for
+    every later chunk of the same shape, in this and every later
+    render_plan call on the plan: the same hand-written kernels and ops on
+    the same inputs in the same order, so the image is the eager loop's bit
+    for bit, and the host no longer issues each chunk's thousands of
+    launches. One program per (film, chunk pixels): the full chunk, and the
+    last chunk where chunk_pixels does not divide the film. The last chunk
+    is not padded as the JAX package pads it: padded rays would add
+    segments that the eager loop does not count.
+
+    The plan's very first chunk runs eagerly, and its result is used: it
+    loads the kernels' library, fills the occupancy queries the kernels
+    cache on the host (csrc/bvh_walk.cu, csrc/slab_grid.cu) and whatever
+    else is made at first use, none of which a recording may do. Its
+    program is recorded right after it, in the same call, and any other
+    chunk shape at its first need; every later chunk replays. So a plan's
+    first pass (a warm-up) records all its programs, as the JAX package's
+    first call compiles, and a one-chunk plan replays from its second
+    pass on.
+
+    A program holds static device buffers: its inputs (the chunk's pixel
+    offsets and pixel xy, and one params tree that the plan's programs
+    share) and its outputs. At the start of a call on a plan that has
+    recorded, the call's params are copied into the recorded tree (one
+    `torch._foreach_copy_`); a tree whose keys, shapes or dtypes differ
+    raises — a program is never recorded again over other buffers. Each
+    chunk's pixels are copied into the static inputs on the device, and
+    the caller reads the outputs before the next replay.
+
+    The launch counters count host calls: a recording counts a chunk's
+    launches once without running them, and a replay makes no call. So the
+    program takes the counters' change over the recording back out and adds
+    it at every replay: a pass counts what the eager loop counts.
+
+    `record(fn) → (replay, outputs)` is the recording seam (_recorder). A
+    failure to record or replay raises; nothing falls back to the eager
+    loop."""
+
+    def __init__(self, record):
+        self.record = record
+        self.warm = False  # the plan's first chunk has run, eagerly
+        self.programs = {}  # (film kind, chunk pixels) -> _Program
+        self.params = None  # the recorded params tree, shared by the programs
+        self.leaves = None  # its leaves, in _param_leaves order
+        self._layout = None
+        self.record_s = 0.0  # host seconds spent recording: set-up
+        self.replays = 0
+
+    def begin(self, params) -> None:
+        """A render_plan call starts: its params go into the recorded tree,
+        where there is one."""
+        if self.params is not None:
+            self.load(params)
+
+    def run(self, kind: str, fn, params, pix_offsets, pix_xy):
+        """fn(params, pix_offsets, pix_xy) → one chunk's outputs: eagerly
+        for the plan's first chunk, whose program is then recorded, else by
+        a replay of the program of (kind, chunk pixels), recorded at first
+        need. A replay's outputs are the program's static buffers: read
+        them before the next chunk."""
+        key = (kind, pix_offsets.shape[0])
+        if not self.warm:
+            self.warm = True
+            outs = fn(params, pix_offsets, pix_xy)
+            self._record(key, fn, params, pix_offsets, pix_xy)
+            return outs
+        prog = self.programs.get(key) or self._record(key, fn, params, pix_offsets, pix_xy)
+        prog.pix_offsets.copy_(pix_offsets)
+        prog.pix_xy.copy_(pix_xy)
+        prog.replay()
+        for counter, name, n in prog.counts:
+            counter[name] += n
+        self.replays += 1
+        return prog.outs
+
+    def load(self, params) -> None:
+        """Copy params into the recorded tree; raises where its keys,
+        shapes, dtypes or devices differ from the recorded tree's."""
+        leaves = _param_leaves(params)
+        layout = _layout(leaves)
+        if layout != self._layout:
+            diff = next((a, b) for a, b in zip_longest(layout, self._layout) if a != b)
+            raise ValueError(f"the params tree differs from the one the chunk program was "
+                             f"recorded with: {diff[0]} where it recorded {diff[1]}")
+        torch._foreach_copy_(self.leaves, [t for _, t in leaves])
+
+    def _record(self, key, fn, params, pix_offsets, pix_xy) -> _Program:
+        t0 = time.perf_counter()
+        if self.params is None:
+            leaves = [(path, t.detach().clone()) for path, t in _param_leaves(params)]
+            self.params, self.leaves = _tree(leaves), [t for _, t in leaves]
+            self._layout = _layout(leaves)
+        static_po, static_xy = pix_offsets.clone(), pix_xy.clone()
+        before = [dict(c) for c in _COUNTERS]
+        counts = []
+        try:
+            replay, outs = self.record(lambda: fn(self.params, static_po, static_xy))
+            for counter, was in zip(_COUNTERS, before):
+                counts += [(counter, name, n - was.get(name, 0))
+                           for name, n in counter.items() if n != was.get(name, 0)]
+        finally:  # a recording launches nothing: the counters as they were
+            for counter, was in zip(_COUNTERS, before):
+                counter.clear()
+                counter.update(was)
+        prog = self.programs[key] = _Program(replay, static_po, static_xy, tuple(outs), counts)
+        self.record_s += time.perf_counter() - t0
+        return prog
+
+
 def render_scene(
     scene: Scene,
     params=None,
@@ -273,35 +492,60 @@ def render_scene(
 
     params: the scene's params tree (scene.init_params when None), with
     tensor or numpy leaves; it is moved to `device`. ray_sort, intersector:
-    see plan_render."""
+    see plan_render. The plan is made for this one pass and dropped, so a
+    recording could not pay for itself: the chunks run eagerly. Render a
+    plan that is kept with render_plan to replay its chunk program."""
     plan = plan_render(scene, device, chunk_pixels, ray_sort, intersector)
-    return render_plan(plan, params, show_progress=show_progress, count_rays=count_rays)
+    return render_plan(plan, params, show_progress=show_progress, count_rays=count_rays,
+                       graph=False)
 
 
 def render_plan(plan: RenderPlan, params=None, show_progress: bool = True,
-                count_rays: bool = False):
+                count_rays: bool = False, graph: bool = True):
     """render_scene over an existing plan (its tables, shading context and
-    sampler set-up), so that several renders of one scene plan it once."""
+    sampler set-up), so that several renders of one scene plan it once.
+
+    The call moves the params tree to the device and uploads every pixel's
+    offset and xy once, then renders the plan's chunks in order. On the
+    card each chunk goes through the plan's ChunkPrograms (the first chunk
+    of a fresh plan eagerly, every later one as a replay of its recorded
+    CUDA graph); graph=False runs each chunk eagerly: the A/B baseline. The
+    CPU has no graphs: its loop is always eager."""
     scene = plan.scene
     dev = plan.device
     params = params_from_numpy(scene.init_params if params is None else params, dev)
     xres, yres = scene.settings.resolution
-    po, px, n_pixels = _chunked_pixel_arrays(plan)
-    if scene.settings.filter == "triangle":
-        return _render_plan_splat(plan, params, po, px, n_pixels, show_progress, count_rays)
+    n_pixels = xres * yres
+    po, px = pixel_arrays(plan)
     C = plan.chunk_pixels
+    chunks = [slice(s, min(s + C, n_pixels)) for s in range(0, n_pixels, C)]
+    if graph and plan.programs is None:
+        record = _recorder(dev)
+        if record is not None:
+            plan.programs = ChunkPrograms(record)
+    programs = plan.programs if graph else None
+    if programs is not None:
+        programs.begin(params)
+
+    def run(kind, fn, sl):
+        """fn(params, the chunk's pixels): eagerly, or through the plan's
+        programs."""
+        if programs is None:
+            return fn(params, po[sl], px[sl])
+        return programs.run(kind, fn, params, po[sl], px[sl])
+
+    if scene.settings.filter == "triangle":
+        return _render_plan_splat(plan, run, chunks, show_progress, count_rays)
+    chunk_fn = partial(_render_chunk, plan)
     out = torch.empty((n_pixels, 3), dtype=torch.float32, device=dev)
     nan_counts = torch.zeros((n_pixels,), dtype=torch.int32, device=dev)
     segments = torch.zeros((), dtype=torch.int64, device=dev)
     t0 = time.time()
-    with torch.no_grad(), progress(po.shape[0], enabled=show_progress) as tick:
-        for k in range(po.shape[0]):
-            n_real = min(C, n_pixels - k * C)
-            pk = torch.as_tensor(po[k, :n_real].astype(np.int64), device=dev)
-            xk = torch.as_tensor(px[k, :n_real], device=dev)
-            means, bad, seg = _render_chunk(plan, params, pk, xk)
-            out[k * C:k * C + n_real] = means
-            nan_counts[k * C:k * C + n_real] = bad
+    with torch.no_grad(), progress(len(chunks), enabled=show_progress) as tick:
+        for sl in chunks:
+            means, bad, seg = run("box", chunk_fn, sl)
+            out[sl] = means
+            nan_counts[sl] = bad
             segments = segments + seg
             tick(1)
         img = out.cpu().numpy()
@@ -322,25 +566,27 @@ def render_plan(plan: RenderPlan, params=None, show_progress: bool = True,
     return img
 
 
-def _render_plan_splat(plan: RenderPlan, params, po, px, n_pixels: int, show_progress: bool,
-                       count_rays: bool):
-    """render_plan's triangle-filter branch: every chunk adds its full-film
-    (film, wsum) into one pair, in chunk order, then the film is normalized
-    by its weights. Only the real pixels of the last chunk are rendered, so
-    no padding pixel ever reaches the splat."""
-    scene, dev, C = plan.scene, plan.device, plan.chunk_pixels
+def _render_plan_splat(plan: RenderPlan, run, chunks, show_progress: bool, count_rays: bool):
+    """render_plan's triangle-filter branch: every chunk's taps (through
+    render_plan's `run`, so recorded and replayed as its chunks are) are
+    splat into one full-film (film, wsum) pair, in chunk order, then the
+    film is normalized by its weights. The splat itself runs eagerly after
+    each chunk: its sort reads the band of pixel ids back to the host. Only
+    the real pixels of the last chunk are rendered, so no padding pixel
+    ever reaches the splat."""
+    scene, dev = plan.scene, plan.device
     xres, yres = scene.settings.resolution
+    n_pixels = xres * yres
+    taps_fn = partial(_chunk_taps, plan)
     film = torch.zeros((n_pixels, 3), dtype=torch.float32, device=dev)
     wsum = torch.zeros((n_pixels,), dtype=torch.float32, device=dev)
     nan_total = torch.zeros((), dtype=torch.int64, device=dev)
     segments = torch.zeros((), dtype=torch.int64, device=dev)
     t0 = time.time()
-    with torch.no_grad(), progress(po.shape[0], enabled=show_progress) as tick:
-        for k in range(po.shape[0]):
-            n_real = min(C, n_pixels - k * C)
-            pk = torch.as_tensor(po[k, :n_real].astype(np.int64), device=dev)
-            xk = torch.as_tensor(px[k, :n_real], device=dev)
-            f, w, n_bad, seg = _render_chunk_splat(plan, params, pk, xk, n_pixels)
+    with torch.no_grad(), progress(len(chunks), enabled=show_progress) as tick:
+        for sl in chunks:
+            rad4, ids4, w4, n_bad, seg = run("triangle", taps_fn, sl)
+            f, w = F.filter_splat(rad4, ids4, w4, n_pixels)
             film = film + f
             wsum = wsum + w
             nan_total = nan_total + n_bad
