@@ -1107,9 +1107,9 @@ def graph_ab(plan, turns: int = 3) -> dict:
     whole replayed headline pass (50,000 kernels) now and then lost some
     on the H100.
     → the walls, memory, busy time, those kernel counts, the program's
-    recording seconds and replays, the first pass's image, segments and
-    launches, and whether every pass was the first bit for bit, with its
-    segments, launches and sorted traversals."""
+    recording seconds (its `record` spans) and replays, the first pass's
+    image, segments and launches, and whether every pass was the first bit
+    for bit, with its segments, launches and sorted traversals."""
     import numpy as np
     import torch
 
@@ -1118,8 +1118,10 @@ def graph_ab(plan, turns: int = 3) -> dict:
     from curry_pbrt_tpu_torch.ops.kernels.aggregate import RAY_SORTS
     from curry_pbrt_tpu_torch.profile_render import _device_ms
     from curry_pbrt_tpu_torch.render import render_plan
+    from curry_pbrt_tpu_torch.utils import trace
 
     dev = plan.device
+    recorded_before = trace.total_s("record")
 
     def one(graph):
         K.reset_launches()
@@ -1185,7 +1187,8 @@ def graph_ab(plan, turns: int = 3) -> dict:
     median = {g: sorted(w)[len(w) // 2] for g, w in walls.items()}
     return dict(walls=walls, median=median, eager_mem=eager_mem, graph_mem=graph_mem, busy=busy,
                 busy_share={g: busy[g]["ms"] / 1e3 / median[g] for g in busy},
-                record_s=plan.programs.record_s, programs=sorted(plan.programs.programs),
+                record_s=trace.total_s("record") - recorded_before,
+                programs=sorted(plan.programs.programs),
                 replays=plan.programs.replays, img=ref["img"], segments=ref["segments"],
                 launches=ref["launches"], sorts=ref["sorts"], equal=equal,
                 max_abs=max(float(np.abs(r["img"] - ref["img"]).max()) for r in runs[1:]))

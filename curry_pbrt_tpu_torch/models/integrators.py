@@ -16,6 +16,9 @@ work. Every lane consumes the same statically assigned Halton dimensions per
 bounce (8: light pick, light 2D, NEE-BSDF 2D, BSDF bucket + extra, RR), so
 images match the JAX package sample for sample.
 
+Inside a render chunk, `trace.stage` marks where each stage of the device
+work starts (utils/trace): sample, intersect, shade, nee.
+
 Algorithm mapping to the reference:
   uniform_sample_one_light ← integrator/mod.rs:13-97
   path_trace               ← integrator/path.rs:13-66 (emission gating on
@@ -41,6 +44,7 @@ from curry_pbrt_tpu_torch.ops import bsdf as B
 from curry_pbrt_tpu_torch.ops import math as m
 from curry_pbrt_tpu_torch.ops.halton import HaltonConfig, halton_sample
 from curry_pbrt_tpu_torch.ops.intersect import Hit, offset_point_by_error
+from curry_pbrt_tpu_torch.utils import trace
 
 DIMS_PER_BOUNCE = 8
 (D_LIGHT_PICK, D_LIGHT_U, D_LIGHT_V, D_NEE_U, D_NEE_V, D_BSDF_BUCKET,
@@ -267,7 +271,9 @@ def path_trace(
     segments = torch.zeros((), dtype=torch.int64, device=o.device)
 
     for bounce in range(max_depth):
+        trace.stage("sample")
         u = _bounce_u(indices, dim_base, bounce, cfg, perms)
+        trace.stage("intersect")
         # dead lanes carry a stale ray; t_max 0 makes every box test in the
         # traversal fail at once for them
         hit = ctx.intersect(o, d, torch.where(active, _FMAX, 0.0))
@@ -280,6 +286,7 @@ def path_trace(
         mat_ids = torch.where(hit.prim >= 0, mat_ids, -1)
         active = active & hit.valid & (mat_ids >= 0)  # (path.rs:30-34,64)
 
+        trace.stage("shade")
         frame = _shading_frame(hit.n)
         wo = -d
         is_all_delta = ctx.mat_is_all_delta[torch.clamp(mat_ids, min=0).long()]
@@ -287,11 +294,13 @@ def path_trace(
         # one lobe build serves NEE (eval + sample) and the continuation
         fam_lobes = build_family_lobes(ctx, mat_ids, hit.uv, params)
         shaded = active & ~is_all_delta
+        trace.stage("nee")
         nee = uniform_sample_one_light(ctx, params, hit, mat_ids, wo, frame, u, fam_lobes,
                                        mask=shaded)
         L = L + torch.where(shaded[:, None], beta * nee, 0.0)
         segments = segments + 2 * shaded.sum()
 
+        trace.stage("shade")
         # continuation (path.rs:41-46)
         fx, fy, fz = frame
         wo_l = m.to_local(wo, fx, fy, fz)
@@ -316,6 +325,7 @@ def path_trace(
 
     # final iteration (bounce == max_depth): emission only, then stop —
     # slim (t, prim) traversal; no attributes needed past the last shade
+    trace.stage("intersect")
     _t_f, prim_f = ctx.intersect_tprim(o, d, torch.where(active, _FMAX, 0.0))
     segments = segments + active.sum()
     gate = active if max_depth == 0 else active & specular
@@ -356,6 +366,7 @@ def direct_light_trace(
 
     def level(o, d, weight, live, depth):
         N = o.shape[0]
+        trace.stage("intersect")
         hit = ctx.intersect(o, d, torch.where(live, _FMAX, 0.0))
         segments = live.sum()
         prim = torch.clamp(hit.prim, min=0).long()
@@ -369,19 +380,24 @@ def direct_light_trace(
             esc = LT.le_out_scene_total(ctx.dev_lights, ctx.envs, light_L, d)
             out = out + torch.where((live & ~hit.valid)[:, None], weight * esc, 0.0)
 
+        trace.stage("sample")
         dim0 = dim_base + DIMS_PER_BOUNCE * depth
         u = {key: halton_sample(indices, dim0 + k, cfg, perms)
              for k, key in enumerate(_U_KEYS[:D_BSDF_BUCKET])}
+        trace.stage("shade")
         frame = _shading_frame(hit.n)
         wo = -m.normalize(d)
         fam_lobes = build_family_lobes(ctx, mat_ids, hit.uv, params)
+        trace.stage("nee")
         nee = uniform_sample_one_light(ctx, params, hit, mat_ids, wo, frame, u, fam_lobes,
                                        mask=has_mat)
         out = out + torch.where(has_mat[:, None], weight * nee, 0.0)
         segments = segments + 2 * has_mat.sum()
 
         if depth + 1 < max_depth and max_delta_lobes > 0:
+            trace.stage("sample")
             u_bucket = halton_sample(indices, dim0 + D_BSDF_BUCKET, cfg, perms)
+            trace.stage("shade")
             fx, fy, fz = frame
             wo_l = m.to_local(wo, fx, fy, fz)
             bwi, bf = _zeros(N, 3, like=o), _zeros(N, 3, like=o)

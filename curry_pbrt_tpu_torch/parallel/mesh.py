@@ -45,7 +45,6 @@ lengths differ.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -54,10 +53,12 @@ import torch.distributed as dist
 
 from curry_pbrt_tpu_torch.interop import params_from_numpy
 from curry_pbrt_tpu_torch.render import RenderPlan, _render_chunk, resolve_device
+from curry_pbrt_tpu_torch.utils import trace
 
 
-def _sync(device) -> None:
-    if device.type == "cuda":
+def _sync(device, times) -> None:
+    """Waits for the card where `times` asks for seconds."""
+    if times is not None and device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
@@ -69,26 +70,26 @@ def backward_over_pixels(plan: RenderPlan, params, pix_offsets, pix_xy,
     leaves that require grad. params: a tree of tensors on the plan's
     device. Returns the loss, a detached 0-d tensor.
 
-    times: when a dict is given, the device is synchronized around every
-    forward and backward and their seconds added under "forward_s" and
-    "backward_s" (without it the host never waits on the device)."""
+    Each sub-chunk's forward and backward are spans (utils/trace). times:
+    when a dict is given, the device is synchronized around every forward
+    and backward, so that the spans hold the device's work, and their
+    seconds are added under "forward_s" and "backward_s" (without it the
+    host never waits on the device)."""
     C, S = pix_offsets.shape[0], plan.chunk_pixels
     total = torch.zeros((), dtype=torch.float32, device=plan.device)
     for s in range(0, C, S):
         sl = slice(s, min(s + S, C))
+        _sync(plan.device, times)
+        with trace.span("forward") as fwd:
+            img, _, _ = _render_chunk(plan, params, pix_offsets[sl], pix_xy[sl])
+            loss = pixel_loss(img, sl)
+            _sync(plan.device, times)
+        with trace.span("backward") as bwd:
+            loss.backward()
+            _sync(plan.device, times)
         if times is not None:
-            _sync(plan.device)
-            t0 = time.perf_counter()
-        img, _, _ = _render_chunk(plan, params, pix_offsets[sl], pix_xy[sl])
-        loss = pixel_loss(img, sl)
-        if times is not None:
-            _sync(plan.device)
-            t1 = time.perf_counter()
-            times["forward_s"] = times.get("forward_s", 0.0) + t1 - t0
-        loss.backward()
-        if times is not None:
-            _sync(plan.device)
-            times["backward_s"] = times.get("backward_s", 0.0) + time.perf_counter() - t1
+            times["forward_s"] = times.get("forward_s", 0.0) + fwd.seconds
+            times["backward_s"] = times.get("backward_s", 0.0) + bwd.seconds
         total = total + loss.detach()
     return total
 
@@ -222,7 +223,8 @@ def make_sharded_train_step(plan: RenderPlan, mesh: RayMesh,
     (JAX's pmean: a sum, over the world size), and every rank takes the same
     optimizer step. A leaf whose slab left its grad None gets a zero grad,
     so every rank reduces the same tensors. With `times`, the all-reduce's
-    seconds are added under "allreduce_s" too."""
+    seconds are added under "allreduce_s" too. Spans (utils/trace):
+    `train_step`, over backward_over_pixels' and `allreduce`, `optimizer`."""
 
     def step(params, target, pix_offsets, pix_xy, times: Optional[dict] = None):
         C = pix_offsets.shape[0]
@@ -231,26 +233,27 @@ def make_sharded_train_step(plan: RenderPlan, mesh: RayMesh,
                              f"give it a multiple of the world size")
         S = C // mesh.world_size
         sl = slice(mesh.rank * S, (mesh.rank + 1) * S)
-        optimizer.zero_grad(set_to_none=True)
-        params = params_from_numpy(params, plan.device)
-        loss = backward_over_pixels(plan, params, pix_offsets[sl], pix_xy[sl],
-                                    mse_pixel_loss(target[sl]), times)
-        if mesh.group is not None:
-            if times is not None:
-                _sync(plan.device)
-                t0 = time.perf_counter()
-            for group in optimizer.param_groups:
-                for leaf in group["params"]:
-                    if leaf.grad is None:
-                        leaf.grad = torch.zeros_like(leaf)
-                    dist.all_reduce(leaf.grad, op=dist.ReduceOp.SUM, group=mesh.group)
-                    leaf.grad.div_(mesh.world_size)
-            dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=mesh.group)
-            loss = loss / mesh.world_size
-            if times is not None:
-                _sync(plan.device)
-                times["allreduce_s"] = times.get("allreduce_s", 0.0) + time.perf_counter() - t0
-        optimizer.step()
+        with trace.span("train_step"):
+            optimizer.zero_grad(set_to_none=True)
+            params = params_from_numpy(params, plan.device)
+            loss = backward_over_pixels(plan, params, pix_offsets[sl], pix_xy[sl],
+                                        mse_pixel_loss(target[sl]), times)
+            if mesh.group is not None:
+                _sync(plan.device, times)
+                with trace.span("allreduce") as ar:
+                    for group in optimizer.param_groups:
+                        for leaf in group["params"]:
+                            if leaf.grad is None:
+                                leaf.grad = torch.zeros_like(leaf)
+                            dist.all_reduce(leaf.grad, op=dist.ReduceOp.SUM, group=mesh.group)
+                            leaf.grad.div_(mesh.world_size)
+                    dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=mesh.group)
+                    loss = loss / mesh.world_size
+                    _sync(plan.device, times)
+                if times is not None:
+                    times["allreduce_s"] = times.get("allreduce_s", 0.0) + ar.seconds
+            with trace.span("optimizer"):
+                optimizer.step()
         return loss
 
     return step

@@ -25,7 +25,6 @@ autograd graph.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from functools import partial
 from itertools import zip_longest
@@ -54,6 +53,7 @@ from curry_pbrt_tpu_torch.ops.kernels.aggregate import RAY_SORTS, make_kernel_in
 from curry_pbrt_tpu_torch.ops.kernels.bvh_kernel import make_bvh_intersectors
 from curry_pbrt_tpu_torch.ops.kernels.intersect_kernel import LAUNCHES
 from curry_pbrt_tpu_torch.sceneio.compiler import Scene, compile_scene_file
+from curry_pbrt_tpu_torch.utils import trace
 from curry_pbrt_tpu_torch.utils.imageio import write_png
 from curry_pbrt_tpu_torch.utils.logging import get_logger, progress
 
@@ -199,20 +199,22 @@ def _chunk_sample_radiance(plan: RenderPlan, params, pix_offsets, pix_xy):
     once per chunk, so that under grad every chunk's graph holds its own
     stacking and a backward per chunk frees only that chunk's graph."""
     scene, cfg = plan.scene, plan.cfg
-    for fam in plan.ctx.families:
-        fam.stack_params(params)
     spp = scene.settings.spp
     C = pix_offsets.shape[0]
+    trace.stage("sample")
     # each pixel's value spp times (repeat_interleave by an expand: the
     # tensor-repeats form reads its output size back to the host)
     offs = pix_offsets[:, None].expand(C, spp).reshape(-1)
     sample_idx = torch.arange(spp, dtype=torch.int64, device=pix_offsets.device).repeat(C)
     indices = halton_indices(offs, sample_idx, cfg)
-
     jitter = halton_sample_2d(indices, 0, cfg, plan.perms) - 0.5
-    film_xy = pix_xy[:, None].expand(C, spp, 2).reshape(-1, 2) + jitter
     lens_u = halton_sample_2d(indices, 2, cfg, plan.perms) if scene.camera.has_lens else None
+    trace.stage("film")
+    film_xy = pix_xy[:, None].expand(C, spp, 2).reshape(-1, 2) + jitter
     o, d = generate_rays(scene.camera, film_xy, lens_u)
+    trace.stage("shade")
+    for fam in plan.ctx.families:
+        fam.stack_params(params)
     if scene.settings.integrator == "path":
         radiance, segments = I.path_trace(
             plan.ctx, params, o, d, indices, cfg, plan.perms,
@@ -228,20 +230,25 @@ def _chunk_sample_radiance(plan: RenderPlan, params, pix_offsets, pix_xy):
 
 def _render_chunk(plan: RenderPlan, params, pix_offsets, pix_xy):
     """→ ((C, 3) box-filtered pixel means, (C,) dropped-NaN-sample counts,
-    traced segments)."""
-    radiance, _, segments = _chunk_sample_radiance(plan, params, pix_offsets, pix_xy)
-    means, bad = F.accumulate_box(radiance, plan.scene.settings.spp, return_nan_counts=True)
+    traced segments). Its device work is split into stages (utils/trace)."""
+    with trace.stages(plan.device):
+        radiance, _, segments = _chunk_sample_radiance(plan, params, pix_offsets, pix_xy)
+        trace.stage("film")
+        means, bad = F.accumulate_box(radiance, plan.scene.settings.spp, return_nan_counts=True)
     return means, bad, segments
 
 
 def _chunk_taps(plan: RenderPlan, params, pix_offsets, pix_xy):
     """One chunk's tent-filter taps, before the splat: → (radiance (4M,3),
     pixel ids (4M,) int32, weights (4M,) — F.triangle_taps' —,
-    dropped-NaN-sample count, traced segments), all of fixed shape."""
-    radiance, film_xy, segments = _chunk_sample_radiance(plan, params, pix_offsets, pix_xy)
-    xres, yres = plan.scene.settings.resolution
-    rad4, ids4, w4 = F.triangle_taps(film_xy, radiance, xres, yres)
-    n_bad = torch.sum(torch.any(torch.isnan(radiance), dim=-1))
+    dropped-NaN-sample count, traced segments), all of fixed shape. Its
+    device work is split into stages (utils/trace)."""
+    with trace.stages(plan.device):
+        radiance, film_xy, segments = _chunk_sample_radiance(plan, params, pix_offsets, pix_xy)
+        trace.stage("film")
+        xres, yres = plan.scene.settings.resolution
+        rad4, ids4, w4 = F.triangle_taps(film_xy, radiance, xres, yres)
+        n_bad = torch.sum(torch.any(torch.isnan(radiance), dim=-1))
     return rad4, ids4, w4, n_bad, segments
 
 
@@ -359,6 +366,7 @@ class _Program:
     pix_xy: torch.Tensor
     outs: tuple  # static outputs, overwritten by every replay
     counts: list  # [(counter dict, key, count)] that a replay adds
+    timelines: list  # the stage boundaries it captured (utils/trace)
 
 
 class ChunkPrograms:
@@ -402,6 +410,12 @@ class ChunkPrograms:
     program takes the counters' change over the recording back out and adds
     it at every replay: a pass counts what the eager loop counts.
 
+    The chunk's stage boundaries (utils/trace) are captured as event
+    nodes, so every replay records them again. While a profiler session
+    records, a replay is timed from an event before its input copies (the
+    `launch` stage) and synchronised, and its stages are read into its
+    span. Spans: `eager` (the first chunk), `record`, `replay`.
+
     `record(fn) → (replay, outputs)` is the recording seam (_recorder). A
     failure to record or replay raises; nothing falls back to the eager
     loop."""
@@ -413,7 +427,6 @@ class ChunkPrograms:
         self.params = None  # the recorded params tree, shared by the programs
         self.leaves = None  # its leaves, in _param_leaves order
         self._layout = None
-        self.record_s = 0.0  # host seconds spent recording: set-up
         self.replays = 0
 
     def begin(self, params) -> None:
@@ -431,13 +444,19 @@ class ChunkPrograms:
         key = (kind, pix_offsets.shape[0])
         if not self.warm:
             self.warm = True
-            outs = fn(params, pix_offsets, pix_xy)
+            with trace.span("eager"):
+                outs = fn(params, pix_offsets, pix_xy)
             self._record(key, fn, params, pix_offsets, pix_xy)
             return outs
         prog = self.programs.get(key) or self._record(key, fn, params, pix_offsets, pix_xy)
-        prog.pix_offsets.copy_(pix_offsets)
-        prog.pix_xy.copy_(pix_xy)
-        prog.replay()
+        with trace.span("replay"):
+            start = trace.launch_mark(pix_offsets.device)
+            prog.pix_offsets.copy_(pix_offsets)
+            prog.pix_xy.copy_(pix_xy)
+            prog.replay()
+            if start is not None:
+                torch.cuda.synchronize(pix_offsets.device)
+                trace.replayed(start, prog.timelines)
         for counter, name, n in prog.counts:
             counter[name] += n
         self.replays += 1
@@ -455,25 +474,26 @@ class ChunkPrograms:
         torch._foreach_copy_(self.leaves, [t for _, t in leaves])
 
     def _record(self, key, fn, params, pix_offsets, pix_xy) -> _Program:
-        t0 = time.perf_counter()
-        if self.params is None:
-            leaves = [(path, t.detach().clone()) for path, t in _param_leaves(params)]
-            self.params, self.leaves = _tree(leaves), [t for _, t in leaves]
-            self._layout = _layout(leaves)
-        static_po, static_xy = pix_offsets.clone(), pix_xy.clone()
-        before = [dict(c) for c in _COUNTERS]
-        counts = []
-        try:
-            replay, outs = self.record(lambda: fn(self.params, static_po, static_xy))
-            for counter, was in zip(_COUNTERS, before):
-                counts += [(counter, name, n - was.get(name, 0))
-                           for name, n in counter.items() if n != was.get(name, 0)]
-        finally:  # a recording launches nothing: the counters as they were
-            for counter, was in zip(_COUNTERS, before):
-                counter.clear()
-                counter.update(was)
-        prog = self.programs[key] = _Program(replay, static_po, static_xy, tuple(outs), counts)
-        self.record_s += time.perf_counter() - t0
+        with trace.span("record"):
+            if self.params is None:
+                leaves = [(path, t.detach().clone()) for path, t in _param_leaves(params)]
+                self.params, self.leaves = _tree(leaves), [t for _, t in leaves]
+                self._layout = _layout(leaves)
+            static_po, static_xy = pix_offsets.clone(), pix_xy.clone()
+            before = [dict(c) for c in _COUNTERS]
+            counts = []
+            try:
+                with trace.recording() as timelines:
+                    replay, outs = self.record(lambda: fn(self.params, static_po, static_xy))
+                for counter, was in zip(_COUNTERS, before):
+                    counts += [(counter, name, n - was.get(name, 0))
+                               for name, n in counter.items() if n != was.get(name, 0)]
+            finally:  # a recording launches nothing: the counters as they were
+                for counter, was in zip(_COUNTERS, before):
+                    counter.clear()
+                    counter.update(was)
+            prog = self.programs[key] = _Program(replay, static_po, static_xy, tuple(outs),
+                                                 counts, timelines)
         return prog
 
 
@@ -510,46 +530,69 @@ def render_plan(plan: RenderPlan, params=None, show_progress: bool = True,
     card each chunk goes through the plan's ChunkPrograms (the first chunk
     of a fresh plan eagerly, every later one as a replay of its recorded
     CUDA graph); graph=False runs each chunk eagerly: the A/B baseline. The
-    CPU has no graphs: its loop is always eager."""
+    CPU has no graphs: its loop is always eager.
+
+    The pass is the span `render_plan`, with `prepare` (the params and
+    pixel arrays to the device), a `chunk` a chunk and `readback`
+    (utils/trace)."""
     scene = plan.scene
     dev = plan.device
-    params = params_from_numpy(scene.init_params if params is None else params, dev)
     xres, yres = scene.settings.resolution
     n_pixels = xres * yres
-    po, px = pixel_arrays(plan)
-    C = plan.chunk_pixels
-    chunks = [slice(s, min(s + C, n_pixels)) for s in range(0, n_pixels, C)]
-    if graph and plan.programs is None:
-        record = _recorder(dev)
-        if record is not None:
-            plan.programs = ChunkPrograms(record)
-    programs = plan.programs if graph else None
-    if programs is not None:
-        programs.begin(params)
+    tent = scene.settings.filter == "triangle"
+    with trace.span("render_plan") as whole:
+        with trace.span("prepare"):
+            params = params_from_numpy(scene.init_params if params is None else params, dev)
+            po, px = pixel_arrays(plan)
+            if graph and plan.programs is None:
+                record = _recorder(dev)
+                if record is not None:
+                    plan.programs = ChunkPrograms(record)
+            programs = plan.programs if graph else None
+            if programs is not None:
+                programs.begin(params)
+        C = plan.chunk_pixels
+        chunks = [slice(s, min(s + C, n_pixels)) for s in range(0, n_pixels, C)]
 
-    def run(kind, fn, sl):
-        """fn(params, the chunk's pixels): eagerly, or through the plan's
-        programs."""
-        if programs is None:
-            return fn(params, po[sl], px[sl])
-        return programs.run(kind, fn, params, po[sl], px[sl])
+        def run(kind, fn, sl):
+            """fn(params, the chunk's pixels): eagerly, or through the plan's
+            programs."""
+            if programs is None:
+                with trace.span("eager"):
+                    return fn(params, po[sl], px[sl])
+            return programs.run(kind, fn, params, po[sl], px[sl])
 
-    if scene.settings.filter == "triangle":
-        return _render_plan_splat(plan, run, chunks, show_progress, count_rays)
+        film = _render_plan_splat if tent else _render_plan_box
+        img, segments = film(plan, run, chunks, show_progress)
+    log.info("rendered %dx%d @ %d spp%s on %s in %.2fs", xres, yres, scene.settings.spp,
+             " (triangle filter)" if tent else "", dev, whole.seconds)
+    img = img.reshape(yres, xres, 3)
+    if count_rays:
+        return img, int(segments.item())
+    return img
+
+
+def _render_plan_box(plan: RenderPlan, run, chunks, show_progress: bool):
+    """render_plan's box-filter branch: each chunk's pixel means into the
+    image. → (image (P, 3) numpy, traced segments (0-d tensor))."""
+    dev = plan.device
+    xres = plan.scene.settings.resolution[0]
+    n_pixels = chunks[-1].stop
     chunk_fn = partial(_render_chunk, plan)
     out = torch.empty((n_pixels, 3), dtype=torch.float32, device=dev)
     nan_counts = torch.zeros((n_pixels,), dtype=torch.int32, device=dev)
     segments = torch.zeros((), dtype=torch.int64, device=dev)
-    t0 = time.time()
     with torch.no_grad(), progress(len(chunks), enabled=show_progress) as tick:
         for sl in chunks:
-            means, bad, seg = run("box", chunk_fn, sl)
-            out[sl] = means
-            nan_counts[sl] = bad
-            segments = segments + seg
+            with trace.span("chunk"):
+                means, bad, seg = run("box", chunk_fn, sl)
+                out[sl] = means
+                nan_counts[sl] = bad
+                segments = segments + seg
             tick(1)
-        img = out.cpu().numpy()
-        nan_np = nan_counts.cpu().numpy()
+        with trace.span("readback"):
+            img = out.cpu().numpy()
+            nan_np = nan_counts.cpu().numpy()
     nan_total = int(nan_np.sum())
     if nan_total > 0:
         worst = int(np.argmax(nan_np))
@@ -558,52 +601,45 @@ def render_plan(plan: RenderPlan, params=None, show_progress: bool = True,
             "the reference warns per sample (render.rs:34-40)",
             nan_total, worst % xres, worst // xres,
         )
-    log.info("rendered %dx%d @ %d spp on %s in %.2fs", xres, yres, scene.settings.spp,
-             dev, time.time() - t0)
-    img = img.reshape(yres, xres, 3)
-    if count_rays:
-        return img, int(segments.item())
-    return img
+    return img, segments
 
 
-def _render_plan_splat(plan: RenderPlan, run, chunks, show_progress: bool, count_rays: bool):
+def _render_plan_splat(plan: RenderPlan, run, chunks, show_progress: bool):
     """render_plan's triangle-filter branch: every chunk's taps (through
     render_plan's `run`, so recorded and replayed as its chunks are) are
     splat into one full-film (film, wsum) pair, in chunk order, then the
     film is normalized by its weights. The splat itself runs eagerly after
-    each chunk: its sort reads the band of pixel ids back to the host. Only
-    the real pixels of the last chunk are rendered, so no padding pixel
-    ever reaches the splat."""
-    scene, dev = plan.scene, plan.device
-    xres, yres = scene.settings.resolution
-    n_pixels = xres * yres
+    each chunk (span `splat`): its sort reads the band of pixel ids back to
+    the host. Only the real pixels of the last chunk are rendered, so no
+    padding pixel ever reaches the splat. → (image (P, 3) numpy, traced
+    segments (0-d tensor))."""
+    dev = plan.device
+    n_pixels = chunks[-1].stop
     taps_fn = partial(_chunk_taps, plan)
     film = torch.zeros((n_pixels, 3), dtype=torch.float32, device=dev)
     wsum = torch.zeros((n_pixels,), dtype=torch.float32, device=dev)
     nan_total = torch.zeros((), dtype=torch.int64, device=dev)
     segments = torch.zeros((), dtype=torch.int64, device=dev)
-    t0 = time.time()
     with torch.no_grad(), progress(len(chunks), enabled=show_progress) as tick:
         for sl in chunks:
-            rad4, ids4, w4, n_bad, seg = run("triangle", taps_fn, sl)
-            f, w = F.filter_splat(rad4, ids4, w4, n_pixels)
-            film = film + f
-            wsum = wsum + w
-            nan_total = nan_total + n_bad
-            segments = segments + seg
+            with trace.span("chunk"):
+                rad4, ids4, w4, n_bad, seg = run("triangle", taps_fn, sl)
+                with trace.span("splat"):
+                    f, w = F.filter_splat(rad4, ids4, w4, n_pixels)
+                    film = film + f
+                    wsum = wsum + w
+                nan_total = nan_total + n_bad
+                segments = segments + seg
             tick(1)
-        img = F.normalize_splat(film, wsum).cpu().numpy()
-    if int(nan_total) > 0:
+        with trace.span("readback"):
+            img = F.normalize_splat(film, wsum).cpu().numpy()
+            nan_total = int(nan_total)
+    if nan_total > 0:
         log.warning(
             "dropped %d NaN radiance sample(s) (filter-splat path) — "
-            "the reference warns per sample (render.rs:34-40)", int(nan_total),
+            "the reference warns per sample (render.rs:34-40)", nan_total,
         )
-    log.info("rendered %dx%d @ %d spp (triangle filter) on %s in %.2fs", xres, yres,
-             scene.settings.spp, dev, time.time() - t0)
-    img = img.reshape(yres, xres, 3)
-    if count_rays:
-        return img, int(segments.item())
-    return img
+    return img, segments
 
 
 def render_from_file(path, output: Optional[str] = None, overrides=None,

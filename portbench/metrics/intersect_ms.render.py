@@ -1,0 +1,21 @@
+"""Device milliseconds a pass of the `intersect` stage: the closest hit,
+its attributes, emission, the material lookup and the final slim
+traversal. From the timing events that the program captures into its
+chunk programs (curry_pbrt_tpu_torch/utils/trace.py), read in the traced
+pass, whose every chunk replays, and summed over its chunks. None off
+the card, and where the program has no such stages."""
+
+UNIT = "ms/pass"
+LAYER = "integrator: closest hit"
+MOVES = "samples_per_s"
+
+
+def read(rec):
+    if rec.get("card", "cpu") == "cpu":
+        return None
+    try:
+        from curry_pbrt_tpu_torch.utils import trace
+    except ImportError:
+        return None
+    ms = trace.traced_pass_ms()
+    return ms.get("intersect") if ms else None
