@@ -127,7 +127,13 @@ non-zero and no result line is printed:
                and the peak device memory; (d) d image-sum / d light_L[0,0]
                at full width against a central difference (rtol 2e-2);
                (e) the launches of (c): the plan's K1 / K2 walk alone (the
-               small walk at block_t 8), no plain version on the card;
+               small walk at block_t 8), no plain version on the card, the
+               texel gather's backward (csrc/texel_grad.cu) 20 times a step
+               (4 sub-chunks x 5 bounces) and never in a render pass;
+               (f) that backward at a sub-chunk's 4,194,304 rows, 54% on one
+               texel: the segment sum's, the sort's, the whole backward's
+               and index_put_'s ms and the bound, the kernel within 1e-5 of
+               a texel's Σ|terms| of index_put_;
   10. env + bvh — the environment light and the flat BVH: (a) both BVH
                walks of csrc/bvh_walk.cu (closest and any hit) — the
                live-ray walk of the render path, launched twice (bit-equal),
@@ -1958,19 +1964,23 @@ def main() -> int:
     g_bits = torch.equal(det[0][0], det[1][0])
     g_rel = float((det[0][0] - det[1][0]).abs().max() / det[0][0].abs().max())
     step = make_train_step(plan_h, torch.optim.Adam([tex], lr=0.05))
-    losses, step_stats = [], []
+    losses, step_stats, step_tg = [], [], []
     for k in range(3):
         times = {}
+        tg0 = K.LAUNCHES["texel_grad"]
         torch.cuda.synchronize()
         t0 = time.time()
         losses.append(float(step(params_h, target, po_h, px_h, times=times)))
         step_stats.append((time.time() - t0, times, float(tex.grad.abs().sum())))
+        step_tg.append(K.LAUNCHES["texel_grad"] - tg0)
         if k == 0:  # make_train_step's gradient at the texture 0.5, for phase 11 (c)
             step1_grad = tex.grad.clone()
+    tg0 = K.LAUNCHES["texel_grad"]
     with torch.no_grad():
         img_3 = torch.as_tensor(render_plan(plan_h, params_h, show_progress=False).reshape(-1, 3),
                                 device=dev)
         losses.append(float(mse(img_3, slice(None))))
+    render_tg = K.LAUNCHES["texel_grad"] - tg0
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
     launches_c = dict(K.LAUNCHES)
     log(f"[grad] (c) config-4 step, cornell_tex {res}² {spp} spp depth {depth}, the texture "
@@ -1992,12 +2002,68 @@ def main() -> int:
     if g_rel > 1e-5 or not torch.isfinite(det[0][0]).all():
         raise AssertionError(f"(c) two gradients at one state differ by {g_rel:.3g} (> 1e-5)")
 
-    # (e) the launches of (c): the plan's K1 / K2 walk alone, no plain version
+    # (e) the launches of (c): the plan's K1 / K2 walk alone, no plain version;
+    # the texel gather's backward once a sub-chunk and bounce, never in a
+    # render pass
     log(f"[grad] (e) launches during (c) (2 gradient passes, 3 steps, 1 forward): {launches_c}; "
         f"per gradient pass {pass_launches}; plain calls on CUDA {calls['plain'] - plain_before}")
+    n_sub = -(-res * res // plan_h.chunk_pixels)
+    log(f"[grad] (e) texel_grad launches a step {step_tg} ({n_sub} sub-chunks x {depth} bounces "
+        f"= {n_sub * depth}); in the render pass after them {render_tg}")
     if calls["plain"] != plain_before or not ran_alone(launches_c, ctab.plan):
         raise AssertionError(f"(c) did not run through the plan's K1 / K2 ({ctab.plan} walk) "
                              f"alone")
+    if step_tg != [n_sub * depth] * 3 or n_sub * depth != 20 or render_tg:
+        raise AssertionError(f"(e) a config-4 step launched texel_grad {step_tg} times (not "
+                             f"20), or a render pass launched it {render_tg} times")
+
+    # (f) the texel gather's backward at a step's shape: a sub-chunk's
+    # 4,194,304 rows into the 128² texture, 54% of them on the (0, 0)
+    # texel (the most of a bounce); the segment sum alone on the sorted ids,
+    # the sort, the whole backward and the plain version (index_put_)
+    from curry_pbrt_tpu_torch.ops.kernels import texel_grad as TG
+    from curry_pbrt_tpu_torch.ops.kernels.build import load_library
+
+    n_rows, n_tex = plan_h.chunk_pixels * spp, tex.shape[0] * tex.shape[1]
+    hot = (tex.shape[0] - 1) * tex.shape[1]  # the texel uv = (0, 0) maps to
+    gen = torch.Generator(device=dev).manual_seed(18)
+    tg_ids = torch.randint(0, n_tex, (n_rows,), generator=gen, device=dev, dtype=torch.int32)
+    tg_ids[torch.rand((n_rows,), generator=gen, device=dev) < 0.54] = hot
+    tg_grad = torch.randn((n_rows, 3), generator=gen, device=dev)
+    tg_sorted, tg_perm = torch.sort(tg_ids, stable=True)
+    tg_rows = load_library().curry_texel_grad_carry_rows(n_rows)
+    tg_out = torch.zeros((n_tex, 3), device=dev)
+    tg_cids = torch.empty((tg_rows,), dtype=torch.int32, device=dev)
+    tg_cvals = torch.empty((tg_rows, 3), device=dev)
+
+    def segment_sum():
+        err = load_library().curry_texel_grad(
+            tg_sorted.data_ptr(), tg_perm.data_ptr(), tg_grad.data_ptr(), n_rows, n_tex,
+            tg_out.data_ptr(), tg_cids.data_ptr(), tg_cvals.data_ptr(), tg_rows,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"curry_texel_grad failed: CUDA error {err}")
+
+    tg_k = {"kernel": cuda_ms(segment_sum, 50), "kernel_dev": device_ms(segment_sum, 50),
+            "sort": cuda_ms(lambda: torch.sort(tg_ids, stable=True), 20),
+            "whole": cuda_ms(lambda: TG.texel_grad(tg_ids, tg_grad, n_tex), 20)}
+    tg_plain_ms = cuda_ms(lambda: TG.texel_grad_plain(tg_ids, tg_grad, n_tex), 3)
+    tg_a = TG.texel_grad(tg_ids, tg_grad, n_tex)
+    tg_d = (tg_a - TG.texel_grad_plain(tg_ids, tg_grad, n_tex)).abs()
+    tg_err = float(tg_d.max())  # a reassociation of float32 sums: against Σ|terms| a texel
+    tg_mag = TG.texel_grad_plain(tg_ids, tg_grad.abs(), n_tex)
+    tg_rel = float((tg_d / tg_mag.clamp(min=1e-30)).max())
+    tg_b = least_ms(24 * n_rows + 12 * n_tex, 3 * n_rows)
+    log(f"[grad] (f) texel_grad at {n_rows} rows into {n_tex} texels, "
+        f"{float((tg_ids == hot).float().mean()):.3f} of them on one, on {card}: segment sum "
+        f"{tg_k['kernel']:.4f} ms (device {tg_k['kernel_dev']:.4f}), sort {tg_k['sort']:.4f} "
+        f"ms, whole backward {tg_k['whole']:.4f} ms, plain (index_put_) {tg_plain_ms:.2f} ms, "
+        f"bound {tg_b[0]:.4f} ms ({tg_b[1]}; 24 B a row); max |kernel - plain| {tg_err:.3g}, "
+        f"{tg_rel:.3g} of the texel's Σ|terms| (≤ 1e-5)")
+    if not tg_rel <= 1e-5:
+        raise AssertionError("(f) the segment sum and index_put_ differ by more than a "
+                             "reassociation of float32 sums")
+    del tg_ids, tg_grad, tg_sorted, tg_perm, tg_out, tg_cids, tg_cvals, tg_a, tg_d, tg_mag
 
     # (d) a central finite difference of light_L[0, 0] at full width
     params_d = leaf_params(head.init_params, dev)
@@ -2637,6 +2703,11 @@ def main() -> int:
         entry("bvh_any_hit_per_thread", "curry_pbrt_tpu/ops/bvh.py:298",
               m10_launches["bvh_any_thread"], bvh_any["any_thread_max_abs_err"],
               bvh_any["any_thread_ms"], bvh_any["any_plain_ms"], bvh_any_b, bsrc),
+        # the texel gather's backward (no TPU counterpart: XLA's scatter-add)
+        # at a sub-chunk's shape, its launches per config-4 step, the whole
+        # backward (sort included) against index_put_
+        entry("texel_grad", "none (the VJP of eval_texref's gather)", step_tg[0], tg_err,
+              tg_k["whole"], tg_plain_ms, tg_b, "curry_pbrt_tpu_torch/csrc/texel_grad.cu"),
     ]
     log(f"[total] chip_smoke ran {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

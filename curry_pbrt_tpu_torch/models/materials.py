@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from curry_pbrt_tpu_torch.ops import bsdf as B
+from curry_pbrt_tpu_torch.ops.kernels.texel_grad import TexelGather
 
 
 @dataclass(frozen=True)
@@ -78,8 +79,12 @@ def eval_texref(ref: TexRef, uv, params, mat_id: int, slot: str, want_rgb: bool)
     h, w = img.shape[0], img.shape[1]
     x = torch.clamp((uv[..., 0] * w).to(torch.int32), 0, w - 1).long()
     y = torch.clamp(((1.0 - uv[..., 1]) * h).to(torch.int32), 0, h - 1).long()
-    # one row gather from the flattened (H·W, 3) table
-    texel = img.reshape(-1, 3)[y * w + x]
+    # one row gather from the flattened (H·W, 3) table; under autograd its
+    # backward is the deterministic segment sum of ops/kernels/texel_grad.py
+    if torch.is_grad_enabled() and img.requires_grad:
+        texel = TexelGather.apply(img, y * w + x)
+    else:
+        texel = img.reshape(-1, 3)[y * w + x]
     if want_rgb:
         return texel
     return B.luminance(texel)

@@ -102,7 +102,7 @@ _F = ctypes.c_float
 # n_slabs, use_supers; g2, g3, g5, t_scale (intersect.cuh CURRY_TABLE_ARGS)
 _TABLE_ARGS = [_P] * 7 + [_I] * 5 + [_F] * 4
 # Every extern "C" entry point of csrc/*.cu and its argument types; each
-# returns a cudaError_t as int.
+# returns an int: a cudaError_t, or a count where noted.
 ENTRY_POINTS = {
     # intersect_warp.cu: t_out, row_out, entered_out, improved_out / hit_out; stream
     "curry_tri_closest_hit_warp": _TABLE_ARGS + [_P] * 5,
@@ -135,6 +135,10 @@ ENTRY_POINTS = {
     # t_out, ref_out / hit_out; stream
     "curry_bvh_closest_hit_per_thread": [_P] * 12 + [_I] * 2 + [_F] * 4 + [_P] * 3,
     "curry_bvh_any_hit_per_thread": [_P] * 12 + [_I] * 2 + [_F] * 4 + [_P] * 2,
+    # texel_grad.cu: ids, perm, grad; n, n_texels; out, carry_ids, carry_vals;
+    # carry_rows; stream
+    "curry_texel_grad": [_P] * 3 + [_I] * 2 + [_P] * 3 + [_I, _P],
+    "curry_texel_grad_carry_rows": [_I],  # n → the scratch rows curry_texel_grad needs
 }
 
 
