@@ -107,10 +107,44 @@ def card_name(device) -> str:
     return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
 
 
+def card_report(device):
+    """The card that `device` names, as the card itself reports it: its
+    index, its UUID, and the bytes allocated on it at the peak since
+    reset_peak_memory_stats. None off a card."""
+    import torch
+
+    if device.type != "cuda":
+        return None
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return {"index": index, "uuid": str(torch.cuda.get_device_properties(index).uuid),
+            "peak_bytes": torch.cuda.max_memory_allocated(index)}
+
+
+def cards_used(cards) -> int:
+    """The number of distinct cards (by UUID) on which some rank allocated
+    memory: `device.count`, read from the cards, never from the cell."""
+    return len({c["uuid"] for c in cards if c is not None and c["peak_bytes"] > 0})
+
+
+def device_fault(device: dict, chips: int):
+    """Why a result's device report does not show the cell's `chips` cards
+    in use, one rank a card; None where it does."""
+    uuids = [r["uuid"] for r in device.get("ranks", []) if r["uuid"] is not None]
+    shared = sorted({u for u in uuids if uuids.count(u) > 1})
+    if shared:
+        return f"ranks share a card ({', '.join(shared)}): one rank a card"
+    if device["count"] != chips:
+        return f"the run used {device['count']} card(s); the cell asks for {chips}"
+    return None
+
+
 def measure(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
-            t_start: float = None):
+            t_start: float = None, team=None):
     """One run → (result dict, the numbers compared: {name: (value, limit)}).
-    t_start: the process's start on time.perf_counter (set-up runs from it)."""
+    t_start: the process's start on time.perf_counter (set-up runs from it).
+    team: this rank's portbench.ranks.Team where the cell runs over several
+    ranks; every rank measures, and rank 0 alone gets the result ((None,
+    None) on the others)."""
     import torch
 
     t_start = time.perf_counter() if t_start is None else t_start
@@ -119,11 +153,14 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "c
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
     kind = load_module("kinds", cell.traffic["kind"])
-    rec = {"card": card_name(dev), "package_dir": ROOT / "curry_pbrt_tpu_torch"}
+    rec = {"card": card_name(dev), "package_dir": ROOT / "curry_pbrt_tpu_torch",
+           "rank": team.rank if team else 0, "world": team.world if team else 1}
     t_kind = time.perf_counter()
     state = kind.setup(cell, seed, dev, rec)
     if on_card:
         torch.cuda.synchronize(dev)
+    if team:
+        team.barrier()  # the window opens on every rank at once
     t0 = time.perf_counter()
     rec["setup_s"] = t0 - t_start
     # where set-up went: to the card (imports, its start), compile + plan, the rest
@@ -132,26 +169,40 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "c
     units = failed = 0
     while True:
         units += 1
-        failed += 0 if kind.unit(state) else 1
-        if time.perf_counter() - t0 >= seconds:
+        ok = kind.unit(state)
+        over = time.perf_counter() - t0 >= seconds
+        if team:
+            over, ok = team.agree(over, ok)  # rank 0's clock ends the window for all
+        failed += 0 if ok else 1
+        if over:
             break
     if on_card:
         torch.cuda.synchronize(dev)
     rec["window_s"] = time.perf_counter() - t0
     rec["units"] = units
     rec.update(kind.work(state, units))
-    peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
-    rec["peak_bytes"] = peak
+    card = card_report(dev)
+    rec["peak_bytes"] = card["peak_bytes"] if card else 0
     breakdown = kind.trace(state, rec) if trace else None
     numbers = kind.check(state, cell, seed)
+    cards = [card]
+    if team:
+        merged = team.merge(rec, card, units, numbers, trace)
+        if merged is None:
+            return None, None
+        numbers, cards, ops = merged
+        if trace:
+            breakdown = dict(breakdown, device_ops=ops)
     result = {
         "correct": failed == 0 and all(v <= lim for v, lim in numbers.values()),
         "attempted": units,
         "failed": failed,
         "metrics": {},
         "device": {"platform": "gpu" if on_card else "cpu", "kind": rec["card"],
-                   "count": 1, "memory_peak_bytes": peak},
+                   "count": cards_used(cards), "memory_peak_bytes": rec["peak_bytes"]},
     }
+    if team:
+        result["device"]["ranks"] = rec["ranks"]
     for m in (cell.per_layer if trace else cell.end_to_end):
         value = m.reader.read(rec)
         if value is not None:

@@ -1,4 +1,5 @@
-"""Run one cell of the port's benchmark on the card this process sees.
+"""Run one cell of the port's benchmark: on one card in this process, or,
+where the cell asks for several, one rank process a card (portbench/ranks.py).
 
     python -m portbench.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
@@ -7,8 +8,9 @@ Prints, as the last line of standard output, one JSON object: `correct`,
 --trace 0, its per-layer metrics with --trace 1), `device`, with --trace 1
 `breakdown`, and last `compared`: each number the check compared, with its
 limit. The same numbers close standard error. Exits 1, with no result,
-without a usable card, when the process has loaded JAX or the JAX package,
-or when the run fails.
+without a usable card, when the run used other cards than the cell asks for
+(`device.count` is read from the cards' UUIDs), when the process has loaded
+JAX or the JAX package, or when the run fails.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = ap.parse_args(argv)
 
-    from portbench.bench import forbidden_modules, load_cell, measure
+    from portbench.bench import device_fault, forbidden_modules, load_cell, measure
 
     cell = load_cell(args.workload)
     import torch
@@ -42,12 +44,20 @@ def main(argv=None) -> int:
         print(f"portbench: {cell.name} needs {cell.chips} cards, this process sees "
               f"{torch.cuda.device_count()}", file=sys.stderr)
         return 1
+    if cell.chips > 1:
+        from portbench.ranks import launch
+
+        return launch(cell, args.seed, args.seconds, bool(args.trace), T_START)
     torch.cuda.set_device(0)
     result, numbers = measure(cell, args.seed, args.seconds, bool(args.trace), "cuda", T_START)
     bad = forbidden_modules()
     if bad:
         print(f"portbench: the process loaded {bad}: the port's benchmark may load neither "
               f"JAX nor the JAX package", file=sys.stderr)
+        return 1
+    fault = device_fault(result["device"], cell.chips)
+    if fault:
+        print(f"portbench: {cell.name}: {fault}", file=sys.stderr)
         return 1
     for name, (value, limit) in numbers.items():
         print(f"compared {name} {value!r} limit {limit!r}", file=sys.stderr)

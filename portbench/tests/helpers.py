@@ -34,3 +34,19 @@ def copy_tree(dest: Path) -> Path:
         cfg.update(resolution=[w, h], spp=spp, max_depth=depth)
         path.write_text(json.dumps(cfg))
     return dest
+
+
+def add_cell(tree: Path, kind: str, name: str, chips: int, traffic: dict, check: dict,
+             config: str = "cornell_tex_512") -> None:
+    """A cell `name` of the configuration `config` added to a copy_tree copy:
+    the test kind tests/kinds/<kind>.py as the copy's kinds/<kind>.py, a
+    traffic mix and a check of the cell's own, and its entry in the copy's
+    BENCHMARK.json."""
+    pb = tree / "portbench"
+    shutil.copy(HERE / "tests" / "kinds" / f"{kind}.py", pb / "kinds" / f"{kind}.py")
+    (pb / "traffic" / f"{name}.json").write_text(json.dumps(traffic))
+    (pb / "checks" / f"{name}.json").write_text(json.dumps(check))
+    bench = json.loads((tree / "BENCHMARK.json").read_text())
+    bench["workloads"] = [w for w in bench["workloads"] if w["name"] != name] + [
+        {"name": name, "config": config, "traffic": name, "chips": chips, "why": "a test"}]
+    (tree / "BENCHMARK.json").write_text(json.dumps(bench))

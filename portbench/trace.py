@@ -85,9 +85,18 @@ class Sessions:
         """→ the record for the readers: records, busy and window seconds,
         units; and the 10 device operations that took most time, [name,
         seconds]."""
-        by_name = {}
-        for name, us in self.records:
-            by_name[name] = by_name.get(name, 0.0) + us / 1e6
-        ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
         return dict(records=self.records, busy_s=self.busy_s, window_s=self.window_s,
-                    units=self.units), [[k, v] for k, v in ops]
+                    units=self.units), top_ops(op_seconds(self.records))
+
+
+def op_seconds(records) -> dict:
+    """{name: seconds} of (name, µs) device records."""
+    by_name = {}
+    for name, us in records:
+        by_name[name] = by_name.get(name, 0.0) + us / 1e6
+    return by_name
+
+
+def top_ops(by_name: dict, n: int = 10) -> list:
+    """The n operations that took most time, [[name, seconds], ...]."""
+    return [[k, v] for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:n]]
