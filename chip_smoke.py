@@ -47,14 +47,16 @@ non-zero and no result line is printed:
                slice test's tolerance, and against the port's own CPU
                render (plain versions); the K1 / K2 walk of the path's
                launch plan (the small walk at block_t 8) must have launched,
-               the other walks and the plain versions not;
+               the other walks and the plain versions not, and NEE's two
+               kernels (csrc/nee.cu) once a bounce of each chunk;
   5. headline— cornell_tex at 512², 64 spp, depth 5: a warm-up pass of the
                headline itself, whose first chunk's K1 / K2 inputs (11
                closest and 5 any calls, ~1.9 GB) are captured for phase 7,
                then a timed pass whose launch counts are reported; traced
                segments and the image sum against the JAX anchors
                (155,670,944 within 1e-4 relative; 86446.0 within 1e-3
-               relative), and the plan's walk alone, as in phase 4;
+               relative), and the plan's walk alone and NEE's kernels once
+               a bounce, as in phase 4;
   6. configs — spheres_direct_256 (the direct-lighting integrator),
                spherefield10k_256, mesh10k_512, mesh100k_512 and
                mesh600k_256 at their full bench configs: each planned once
@@ -67,8 +69,9 @@ non-zero and no result line is printed:
                must launch the plan's K3 walk alone (the warp walk; the
                other walk's counters at 0), the ray sort must run on
                mesh100k and mesh600k, the plan's K1 / K2 walk alone (the
-               warp walk on the meshes), and no plain version may run on
-               the card; spheres_direct_256 (no triangle, 4 spheres: the
+               warp walk on the meshes), NEE's kernels once a bounce where
+               the plan takes them (ShadeContext.nee_refusal None) and
+               else never, and no plain version may run on the card; spheres_direct_256 (no triangle, 4 spheres: the
                dense sphere test) must launch no traversal kernel at all;
   7. bounds  — the kernels at the paths' own shapes, on rays captured from
                the warm-up passes of phases 5 and 6 (every K1 / K2 call of
@@ -85,6 +88,16 @@ non-zero and no result line is printed:
                take (bytes or operations, from the live lanes and the
                entered-tile counts of K1's stats and of the plain versions);
                K3's per-pass sum for each walk;
+  7b. nee    — NEE's two kernels (csrc/nee.cu through ops/kernels/nee.py)
+               on the path's own calls: every uniform_sample_one_light call
+               (one a bounce) of the chunk that holds the middle row of the
+               headline and of mesh10k_512 (4,194,304 lanes each; matte and
+               textured Lambert, plastic's GGX), the kernels' radiance
+               bit-equal to the plain path's on every consumed lane and the
+               other lanes' shadow and MIS rays at t_max 0; the whole call
+               both ways in turns, the two kernels' and the walks' device
+               ms, each kernel's bytes bound (nee.bound_bytes), and the
+               headline's per-pass sums;
   8. probes  — the traversal-analysis path (curry_pbrt_tpu_torch/tools/):
                the group kernel K4 (closest and any hit; each ray tests only
                the clusters its own gate lets in) and its baseline (the
@@ -146,7 +159,8 @@ non-zero and no result line is printed:
                events around back-to-back calls, and the card's time
                alone), the plain ms; (b) spherefield10k_256 and mesh10k_512 through
                intersector="bvh" against the JAX anchors of phase 6, the
-               live-ray walk alone (BVH build seconds printed as set-up),
+               live-ray walk alone of the walks (NEE's kernels beside it;
+               BVH build seconds printed as set-up),
                and both walks at mesh10k's bounce-2 shapes with their
                bound; (c)
                mesh10k_env_512 (tools/env_scene.py) through the warp K1 / K2
@@ -182,8 +196,9 @@ non-zero and no result line is printed:
                name and power limit, and its JSON line; every stage's
                output finite; the intersect, predicate, NEE, full-bounce
                and chunk stages launched the small-walk K1 / K2 (the plan's
-               walk) and no other walk, the other stages no traversal
-               kernel, and no plain version ran on the card; the chunk's
+               walk) and no other walk, the NEE, full-bounce and chunk
+               stages NEE's two kernels too, the other stages no kernel of
+               the port, and no plain version ran on the card; the chunk's
                wall beside phase 5's pass wall over its 4 chunks; (b)
                `python -m curry_pbrt_tpu_torch.examples.render_from_file
                scenes/cornell_tex.pbrt --res 64 64 --spp 4` in a
@@ -193,8 +208,8 @@ non-zero and no result line is printed:
                shape (cornell_tex, N = 4,194,304, 3 repetitions): its table
                and JSON line, every piece's output finite, the light
                strategy, the BSDF strategy, offset+intersect and the full
-               NEE launching the small-walk K1 / K2 alone (the others no
-               traversal kernel), no plain version on the card, and each
+               NEE launching the small-walk K1 / K2 alone, the full NEE
+               NEE's two kernels too (the others no kernel of the port), no plain version on the card, and each
                piece's device ms beside (a)'s `NEE total`; (d)
                tools/probe_sphere_kernel.py at 10,000 spheres and 32,768
                rays: the dense path and K3 agree (hit masks, any hit,
@@ -301,6 +316,9 @@ BENCH_TIMEOUT_S = 900  # phase 13: the port's bench, all 7 configs
 # launches them
 GROUP_COUNTERS = ("tri_closest_group", "tri_any_group", "tri_closest_group_rule",
                   "tri_any_group_rule")
+# next-event estimation's two kernels (csrc/nee.cu): a launch each a bounce
+# of a render pass whose plan they implement (ShadeContext.nee_refusal None)
+NEE_COUNTERS = ("nee_sample", "nee_finish")
 
 # Phase 11 (b): one of two rank processes sharing the card over gloo. The
 # headline through render_distributed, then the gradient at the texture 0.5
@@ -1047,6 +1065,106 @@ def grad_leaves(params):
     return [n for n, _ in named], [leaf for _, leaf in named]
 
 
+def nee_calls(plan, params, start: int, pixels: int):
+    """The arguments of every uniform_sample_one_light call (one a bounce)
+    of the plan's chunk over `pixels` pixels from `start`, by name, as the
+    render path makes them (under no_grad, so through csrc/nee.cu)."""
+    import inspect
+
+    import torch
+
+    from curry_pbrt_tpu_torch import render as R
+    from curry_pbrt_tpu_torch.models import integrators as I
+
+    calls = []
+    real = I.uniform_sample_one_light
+    sig = inspect.signature(real)
+
+    def record(*args, **kw):
+        calls.append(dict(sig.bind(*args, **kw).arguments))
+        return real(*args, **kw)
+
+    po, xy = R.pixel_arrays(plan)
+    I.uniform_sample_one_light = record
+    try:
+        with torch.no_grad():
+            R._render_chunk(plan, params, po[start:start + pixels], xy[start:start + pixels])
+    finally:
+        I.uniform_sample_one_light = real
+    torch.cuda.synchronize()
+    return calls
+
+
+def check_nee(name, c, reps: int = 3) -> dict:
+    """NEE's two kernels (ops/kernels/nee.nee) against the plain path
+    (integrators.uniform_sample_one_light_plain) on one call's inputs: the
+    radiance of the consumed lanes (c["mask"]) bit-equal, the other lanes'
+    shadow and MIS rays at t_max 0; the whole call's ms both ways by CUDA
+    events in turns (each around the same two walks); the two kernels' and
+    the walks' device ms (profiler); the kernels' bytes bound
+    (nee.bound_bytes)."""
+    import torch
+
+    from curry_pbrt_tpu_torch.models import integrators as I
+    from curry_pbrt_tpu_torch.ops.kernels import nee as NK
+
+    ctx, mask = c["ctx"], c["mask"]
+    rays = {}
+    pred, tprim = ctx.predicate, ctx.intersect_tprim
+
+    def vis(o, d, t):
+        rays["vis"] = t.clone()
+        return pred(o, d, t)
+
+    def mis(o, d, t):
+        rays["mis"] = t.clone()
+        return tprim(o, d, t)
+
+    with torch.no_grad():
+        ctx.predicate, ctx.intersect_tprim = vis, mis
+        try:
+            got = NK.nee(**c)
+        finally:
+            ctx.predicate, ctx.intersect_tprim = pred, tprim
+        want = I.uniform_sample_one_light_plain(**c)
+        diff = (got[mask].view(torch.int32) != want[mask].view(torch.int32)).any(-1)
+        out = {"n": int(mask.shape[0]), "live": int(mask.sum()), "differ": int(diff.sum()),
+               "max_abs_err": float((got[mask] - want[mask]).abs().max()) if mask.any() else 0.0}
+        if out["differ"] or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name}: NEE's kernels differ from the plain path in "
+                                 f"{out['differ']} of {out['live']} consumed lanes (max |Δ| "
+                                 f"{out['max_abs_err']:.3g}), or give a non-finite value")
+        if any(bool((rays[k][~mask] != 0).any()) for k in ("vis", "mis")):
+            raise AssertionError(f"{name}: a lane whose NEE is discarded walks a ray")
+        out["ms"], out["plain_ms"] = turns(lambda: NK.nee(**c),
+                                           lambda: I.uniform_sample_one_light_plain(**c), reps)
+        # a session can miss a record (its first kernel, now and then): each
+        # NEE kernel's ms is the mean of the launches it shows, over 3 calls
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                NK.nee(**c)
+            torch.cuda.synchronize()
+        dev = {"nee_sample": [0.0, 0], "nee_finish": [0.0, 0], "walks": [0.0, 3],
+               "other": [0.0, 3]}  # [µs, launches or calls]
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            k = port_kernel(e.key)
+            key = (k[0] if k and k[0] in NEE_COUNTERS else "walks" if k else "other")
+            dev[key][0] += e.device_time_total
+            if key in NEE_COUNTERS:
+                dev[key][1] += e.count
+        if not all(dev[k][1] for k in NEE_COUNTERS):
+            raise AssertionError(f"{name}: the profiler shows no launch of a NEE kernel: {dev}")
+        out.update({k + "_dev_ms": us / n / 1e3 for k, (us, n) in dev.items()})
+        flags = NK.nee_sample(ctx, c["params"]["light_L"], c["hit"], c["mat_ids"], c["wo"],
+                              c["u"], c["fam_lobes"], mask, NK._library(),
+                              torch.cuda.current_stream().cuda_stream).flags
+        sample_b, finish_b = NK.bound_bytes(c["mat_ids"], c["fam_lobes"], mask, flags)
+        out["sample_bytes"], out["finish_bytes"] = sample_b, finish_b
+    return out
+
+
 # The port's kernels (csrc/*.cu) as the profiler names them, demangled:
 # "void curry::(anonymous namespace)::closest_warp_kernel<curry::TriPrim,
 # true>(float const*, ...)". → (the LAUNCHES key of the wrapper that
@@ -1055,7 +1173,8 @@ PORT_KERNEL = re.compile(
     r"^(?:void )?(curry::)?(?:\(anonymous namespace\)::)?"
     r"(closest_warp_kernel|any_warp_kernel|small_kernel|walk_kernel|compact_kernel"
     r"|closest_kernel|any_kernel|closest_group_kernel|any_group_kernel|closest_group_rule_kernel"
-    r"|any_group_rule_kernel|slab_grid_kernel|slab_grid_baseline_kernel)(<[^()]*>)?\(")
+    r"|any_group_rule_kernel|slab_grid_kernel|slab_grid_baseline_kernel|nee_sample_kernel"
+    r"|nee_finish_kernel)(<[^()]*>)?\(")
 
 
 def port_kernel(name: str):
@@ -1086,7 +1205,8 @@ def port_kernel(name: str):
     return {"closest_group_kernel": "tri_closest_group", "any_group_kernel": "tri_any_group",
             "closest_group_rule_kernel": "tri_closest_group_rule",
             "any_group_rule_kernel": "tri_any_group_rule", "slab_grid_kernel": "slab_grid",
-            "slab_grid_baseline_kernel": "slab_grid_baseline"}[fn], ""
+            "slab_grid_baseline_kernel": "slab_grid_baseline", "nee_sample_kernel": "nee_sample",
+            "nee_finish_kernel": "nee_finish"}[fn], ""
 
 
 def launched_kernels(launches: dict) -> dict:
@@ -1383,6 +1503,14 @@ def main() -> int:
         return min(launches[k] for k in need) > 0 and not any(launches[k] for k in off) \
             and not any(launches[k] for k in GROUP_COUNTERS) and not calls["plain"]
 
+    def nee_ran(launches, walk, depth, engaged=True):
+        """csrc/nee.cu's two kernels launched once a bounce of each chunk
+        (the chunks counted by the plan's K1: 2·depth + 1 calls a chunk),
+        or not at all where the plan's NEE takes the plain path."""
+        chunks = launches["tri_closest" + K.WALK_SUFFIX[walk]] // (2 * depth + 1)
+        want = depth * chunks if engaged else 0
+        return launches["nee_sample"] == launches["nee_finish"] == want
+
     def forbid(fn):
         def wrapped(o, *a, **kw):
             if o.device.type == "cuda":
@@ -1413,6 +1541,8 @@ def main() -> int:
     if not ran_alone(launches_small, ctab.plan):
         raise AssertionError(f"the slice did not run through the plan's K1 / K2 "
                              f"({ctab.plan} walk) alone")
+    if not nee_ran(launches_small, ctab.plan, 3):
+        raise AssertionError("the slice did not launch NEE's two kernels once a bounce")
     img_cpu = render_scene(small, device="cpu", show_progress=False)
     cpu_close = np.isclose(img, img_cpu, rtol=SLICE_RTOL, atol=SLICE_ATOL)
     log(f"[slice] card vs the port on the CPU (plain versions): max |Δ| "
@@ -1477,6 +1607,8 @@ def main() -> int:
     if not ran_alone(launches, ctab.plan):
         raise AssertionError(f"the headline did not run through the plan's K1 / K2 "
                              f"({ctab.plan} walk) alone")
+    if not nee_ran(launches, ctab.plan, depth):
+        raise AssertionError("the headline did not launch NEE's two kernels once a bounce")
 
     # ---- 6. the sphere-field and mesh configs
     phases.start("6 configs")
@@ -1552,6 +1684,12 @@ def main() -> int:
         walk = ctab.plan if sc.tris.count <= AG.SMALL_SCENE_TRIS else "warp"
         if not ran_alone(launches, walk):
             raise AssertionError(f"{name} did not run through the {walk} walk's K1 / K2 alone")
+        if not nee_ran(launches, walk, cdepth, plan.ctx.nee_refusal is None):
+            raise AssertionError(f"{name}: NEE's kernels launched {launches['nee_sample']} / "
+                                 f"{launches['nee_finish']} times, not once a bounce where its "
+                                 f"plan takes them (refusal: {plan.ctx.nee_refusal}) and else "
+                                 f"never")
+        log(f"[configs] {name}: NEE {'through csrc/nee.cu' if plan.ctx.nee_refusal is None else 'on the plain path: ' + plan.ctx.nee_refusal}")
         if name.startswith("sphere"):  # the plan's K3 walk alone
             need, off = (("sphere_closest" + x, "sphere_any" + x)
                          for x in {"warp": ("", "_thread"), "thread": ("_thread", "")}[ftab.plan])
@@ -1719,6 +1857,49 @@ def main() -> int:
             f"per-thread {tm['closest_thread_ms']:.4f} (plain {tm['closest_plain_ms']:.4f}); any "
             f"warp {tm['any_ms']:.4f} ms, per-thread {tm['any_thread_ms']:.4f} (plain "
             f"{tm['any_plain_ms']:.4f})")
+
+    # ---- 7b. next-event estimation's kernels on the paths' own calls
+    phases.start("7b nee")
+    from curry_pbrt_tpu_torch.interop import params_from_numpy
+
+    nee_runs = {}  # scene → [check_nee of each bounce] of the chunk that holds the middle row
+    for name, sc in (("headline", head), ("mesh10k_512", config_scene("mesh10k_512"))):
+        plan = plan_render(sc, device="cuda")
+        if plan.ctx.nee_refusal is not None:
+            raise AssertionError(f"{name}: NEE's kernels do not take its plan: "
+                                 f"{plan.ctx.nee_refusal}")
+        C, n_pix = plan.chunk_pixels, sc.settings.resolution[0] * sc.settings.resolution[1]
+        start = (n_pix // 2) // C * C
+        calls_nee = nee_calls(plan, params_from_numpy(sc.init_params, dev), start, C)
+        if len(calls_nee) != sc.settings.max_depth:
+            raise AssertionError(f"{name}: {len(calls_nee)} NEE calls in a chunk, not "
+                                 f"{sc.settings.max_depth}")
+        nee_runs[name] = []
+        for bounce, c in enumerate(calls_nee):
+            st = check_nee(f"{name} NEE bounce {bounce}", c)
+            st["bound"] = (least_ms(st["sample_bytes"], 0)[0], least_ms(st["finish_bytes"], 0)[0])
+            nee_runs[name].append(st)
+            log(f"[nee] {name} bounce {bounce} (chunk from pixel {start}; {st['n']} lanes, "
+                f"{st['live']} consumed) on {card}: kernels bit-equal to the plain path on every "
+                f"consumed lane, discarded lanes' rays at t_max 0; the call (walks included) "
+                f"{st['ms']:.4f} ms vs plain {st['plain_ms']:.4f} ms; device: nee_sample "
+                f"{st['nee_sample_dev_ms']:.4f} ms (bound {st['bound'][0]:.4f}, "
+                f"{st['sample_bytes']} B), nee_finish {st['nee_finish_dev_ms']:.4f} ms (bound "
+                f"{st['bound'][1]:.4f}, {st['finish_bytes']} B), walks "
+                f"{st['walks_dev_ms']:.4f} ms, other ops {st['other_dev_ms']:.4f} ms")
+        del calls_nee, plan
+    torch.cuda.empty_cache()
+    head_nee = {f: n_chunks * sum(st[f] for st in nee_runs["headline"])
+                for f in ("ms", "plain_ms", "nee_sample_dev_ms", "nee_finish_dev_ms",
+                          "walks_dev_ms", "other_dev_ms")}
+    head_nee["bound"] = tuple(n_chunks * sum(st["bound"][j] for st in nee_runs["headline"])
+                              for j in (0, 1))
+    log(f"[nee] per headline pass ({depth} calls a chunk x {n_chunks} chunks, each chunk as "
+        f"the middle one) on {card}: the calls {head_nee['ms']:.3f} ms vs plain "
+        f"{head_nee['plain_ms']:.3f} ms; device nee_sample {head_nee['nee_sample_dev_ms']:.3f} "
+        f"ms (bound {head_nee['bound'][0]:.4f}), nee_finish "
+        f"{head_nee['nee_finish_dev_ms']:.3f} ms (bound {head_nee['bound'][1]:.4f}), walks "
+        f"{head_nee['walks_dev_ms']:.3f} ms, other ops {head_nee['other_dev_ms']:.3f} ms")
 
     # ---- 8. the traversal-analysis path: K4, the A/B, the roofline, the
     # granularity probe, P
@@ -2093,10 +2274,11 @@ def main() -> int:
 
     def bvh_alone(launches):
         """The live-ray BVH walk launched (closest and any hit), no other
-        kernel (the per-thread BVH walk included)."""
+        traversal kernel (the per-thread BVH walk included); NEE's kernels
+        may run beside it."""
         need = ("bvh_closest", "bvh_any")
         return min(launches[k] for k in need) > 0 and not any(
-            v for k, v in launches.items() if k not in need)
+            v for k, v in launches.items() if k not in need + NEE_COUNTERS)
 
     # (a) both walks against their plain version: a soup of 5k triangles and
     # 64 rotated, scaled spheres, and the sphere field's BVH, at 32k rays
@@ -2422,8 +2604,11 @@ def main() -> int:
     log(PS.table(stages))
     log(PS.json_line(stages))
     need, _ = walk_counters(ctab.plan)
-    traversing = {"intersect closest": need[:1], "predicate": need[1:], "NEE total": need,
-                  "full bounce (isect+NEE+sample)": need, "chunk": need}
+    # NEE under no_grad on the headline's plan: csrc/nee.cu's two kernels too
+    traversing = {"intersect closest": need[:1], "predicate": need[1:],
+                  "NEE total": need + NEE_COUNTERS,
+                  "full bounce (isect+NEE+sample)": need + NEE_COUNTERS,
+                  "chunk": need + NEE_COUNTERS}
     for name, r in stages["stages"].items():
         if not r["finite"]:
             raise AssertionError(f"(a) stage {name!r}: its output is not finite")
@@ -2469,7 +2654,7 @@ def main() -> int:
     log(PS.json_line(nee, "pieces"))
     traversing = {"light strategy (eval+shadow+weights)": need[1:],
                   "bsdf strategy (sample+isect+le_pdf)": need[:1], "offset+intersect": need[:1],
-                  "full NEE": need}
+                  "full NEE": need + NEE_COUNTERS}
     for name, r in nee["pieces"].items():
         if not r["finite"]:
             raise AssertionError(f"(c) piece {name!r}: its output is not finite")
@@ -2539,7 +2724,6 @@ def main() -> int:
 
     # ---- 14. graph A/B: render_plan's chunk program against its eager loop
     phases.start("14 graph A/B")
-    from curry_pbrt_tpu_torch.interop import params_from_numpy
 
     captured.clear()  # phase 7's rays
     torch.cuda.empty_cache()
@@ -2708,6 +2892,18 @@ def main() -> int:
         # backward (sort included) against index_put_
         entry("texel_grad", "none (the VJP of eval_texref's gather)", step_tg[0], tg_err,
               tg_k["whole"], tg_plain_ms, tg_b, "curry_pbrt_tpu_torch/csrc/texel_grad.cu"),
+        # next-event estimation's two kernels (no TPU counterpart: the JAX
+        # package's uniform_sample_one_light is jnp) per headline pass, from
+        # phase 7b's middle chunk: their device ms, the plain path's whole
+        # call (its walks included) and their bytes bound; launches a pass
+        entry("nee_sample", "none (jnp: uniform_sample_one_light)", head_launches["nee_sample"],
+              max(st["max_abs_err"] for st in nee_runs["headline"]),
+              head_nee["nee_sample_dev_ms"], head_nee["plain_ms"],
+              (head_nee["bound"][0], "bytes"), "curry_pbrt_tpu_torch/csrc/nee.cu"),
+        entry("nee_finish", "none (jnp: uniform_sample_one_light)", head_launches["nee_finish"],
+              max(st["max_abs_err"] for st in nee_runs["headline"]),
+              head_nee["nee_finish_dev_ms"], head_nee["plain_ms"],
+              (head_nee["bound"][1], "bytes"), "curry_pbrt_tpu_torch/csrc/nee.cu"),
     ]
     log(f"[total] chip_smoke ran {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -32,7 +32,7 @@ Algorithm mapping to the reference:
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -44,6 +44,7 @@ from curry_pbrt_tpu_torch.ops import bsdf as B
 from curry_pbrt_tpu_torch.ops import math as m
 from curry_pbrt_tpu_torch.ops.halton import HaltonConfig, halton_sample
 from curry_pbrt_tpu_torch.ops.intersect import Hit, offset_point_by_error
+from curry_pbrt_tpu_torch.ops.kernels import nee as NK
 from curry_pbrt_tpu_torch.utils import trace
 
 DIMS_PER_BOUNCE = 8
@@ -71,6 +72,9 @@ class ShadeContext:
     intersect_tprim: Callable  # (o, d, t_max) -> (t, prim) — slim MIS-leg path
     prim_mat: torch.Tensor  # (P,) i32
     prim_light: torch.Tensor  # (P,) i32
+    nee_slot: torch.Tensor  # (M_total + 1,) i32 by mat_id + 1: non-delta family slot, -1 none
+    nee_fams: List[MaterialFamily]  # the non-delta families, by slot (csrc/nee.cu's slots)
+    nee_refusal: Optional[str]  # why the NEE kernels do not implement this plan; None: they do
 
 
 def _shading_frame(n):
@@ -144,6 +148,59 @@ def shade_sample(ctx: ShadeContext, fam_lobes, mat_ids, wo_l, u_bucket, u_extra)
     return wi, f, pdf, present, is_delta
 
 
+def nondelta_families(families: List[MaterialFamily], registry) -> List[MaterialFamily]:
+    """The families with a non-delta lobe, in the order shade_eval visits
+    them: the NEE kernels' family slots."""
+    return [fam for fam in families
+            if not all(k in B.DELTA_KINDS for k in lobe_kinds(fam.rep, registry))]
+
+
+def family_slot_table(slots: List[MaterialFamily], n_mats: int) -> np.ndarray:
+    """(n_mats + 1,) int32 by material id + 1 (slot 0: the miss id -1): the
+    slot in `slots` of the family the material belongs to, -1 for none."""
+    table = np.full((n_mats + 1,), -1, np.int32)
+    for slot, fam in enumerate(slots):
+        table[np.asarray(fam.member_ids, np.int64) + 1] = slot
+    return table
+
+
+def nee_plan_refusal(lights: LT.LightArrays, n_envs: int, slots: List[MaterialFamily],
+                     registry) -> Optional[str]:
+    """Why the NEE kernels (ops/kernels/nee.py) do not implement a plan's
+    lights or lobes, None where they do. `slots`: nondelta_families. Read
+    from the host tables once, when the plan's ShadeContext is built."""
+    if n_envs:
+        return "an infinite light"
+    types = LT.types_present(lights.type_id)
+    if not types:
+        return "no light"
+    if types - {LT.TYPE_AREA_TRI}:
+        return f"a light of type {min(types - {LT.TYPE_AREA_TRI})} (the kernels sample area " \
+               f"triangles)"
+    if len(slots) > NK.MAX_FAMS:
+        return f"{len(slots)} non-delta families (at most {NK.MAX_FAMS})"
+    for fam in slots:
+        kinds = [k for k in lobe_kinds(fam.rep, registry) if k not in B.DELTA_KINDS]
+        if len(kinds) > NK.MAX_LOBES:
+            return f"{len(kinds)} non-delta lobes in a family (at most {NK.MAX_LOBES})"
+        lacking = [k for k in kinds if k not in NK.KINDS]
+        if lacking:
+            return f"lobe kind {lacking[0]}"
+    return None
+
+
+def nee_refusal(ctx: ShadeContext, device) -> Optional[str]:
+    """Why uniform_sample_one_light runs the plain path for lanes on
+    `device`, None where it runs the kernels: lanes off the card, autograd
+    on, or the plan's own reason (ctx.nee_refusal). Reads no tensor, so a
+    chunk program can record the choice."""
+    if torch.device(device).type != "cuda":
+        return "lanes not on a CUDA card"
+    if torch.is_grad_enabled():
+        return "autograd on"
+    return ctx.nee_refusal
+
+
 def uniform_sample_one_light(ctx, params, hit: Hit, mat_ids, wo, frame, u, fam_lobes, mask):
     """One-light MIS NEE for a shaded batch (integrator/mod.rs:13-97).
 
@@ -153,7 +210,25 @@ def uniform_sample_one_light(ctx, params, hit: Hit, mat_ids, wo, frame, u, fam_l
     tests cull them at once (their radiance is discarded by the caller
     either way). Returns (N,3) radiance, already multiplied by the light
     count.
+
+    Where nee_refusal finds nothing against them (lanes on the card,
+    autograd off, area-triangle lights, lobe kinds the kernels implement)
+    it runs the two CUDA kernels of csrc/nee.cu (ops/kernels/nee.py) around
+    the same two walks, and counts `nee_kernel` on the open span; otherwise
+    the plain path below, their plain version, counted `nee_plain`.
     """
+    if nee_refusal(ctx, hit.p.device) is None:
+        trace.count("nee_kernel", 1)
+        return NK.nee(ctx, params, hit, mat_ids, wo, frame, u, fam_lobes, mask)
+    trace.count("nee_plain", 1)
+    return uniform_sample_one_light_plain(ctx, params, hit, mat_ids, wo, frame, u, fam_lobes,
+                                          mask)
+
+
+def uniform_sample_one_light_plain(ctx, params, hit: Hit, mat_ids, wo, frame, u, fam_lobes,
+                                   mask):
+    """uniform_sample_one_light in PyTorch ops: the plain version of the
+    kernels, and the path of every call they do not take."""
     if ctx.n_lights == 0:
         return torch.zeros_like(wo)
     fx, fy, fz = frame

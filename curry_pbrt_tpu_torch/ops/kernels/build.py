@@ -139,6 +139,11 @@ ENTRY_POINTS = {
     # carry_rows; stream
     "curry_texel_grad": [_P] * 3 + [_I] * 2 + [_P] * 3 + [_I, _P],
     "curry_texel_grad_carry_rows": [_I],  # n → the scratch rows curry_texel_grad needs
+    # nee.cu: the argument struct (host memory; ops/kernels/nee.py), stream
+    "curry_nee_sample": [_P, _P],
+    "curry_nee_finish": [_P, _P],
+    "curry_nee_sample_args_size": [],  # → sizeof the struct, for nee.py's layout check
+    "curry_nee_finish_args_size": [],
 }
 
 

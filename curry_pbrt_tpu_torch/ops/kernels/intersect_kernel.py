@@ -30,8 +30,9 @@ of a warp on one ray, lanes on a cluster's rows, live rays only).
 tools; the per-thread walk of csrc/intersect.cu is the baseline of both.
 `LAUNCHES` counts kernel launches per kernel, those of the sphere kernels
 (sphere_kernel.py), the group kernels (intersect_group.py), the BVH walk
-(bvh_kernel.py), the slab-grid probe (tools/probe_slab_grid.py) and the
-texel gather's backward (texel_grad.py) included.
+(bvh_kernel.py), the slab-grid probe (tools/probe_slab_grid.py), the
+texel gather's backward (texel_grad.py) and next-event estimation (nee.py)
+included.
 
 `stats=True` (K1b, the JAX kernel's roofline instrumentation) also returns
 per-ray (entered, improved) int32 counts: the cluster tiles each ray
@@ -67,7 +68,8 @@ USE_SUPERS_MIN = 96  # enable the super-cluster level beyond this many clusters
 # CPU tensors are not launches and are not counted). tri_* / sphere_*: the
 # warp walk; tri_*_small: the small-table walk; bvh_*: the live-ray BVH
 # walk; *_thread: the per-thread walks; texel_grad: a texel gather's
-# backward (its sort and segment-sum launches).
+# backward (its sort and segment-sum launches); nee_sample / nee_finish:
+# the two halves of next-event estimation (nee.py), one each a call.
 LAUNCHES = {"tri_closest": 0, "tri_closest_stats": 0, "tri_any": 0,
             "tri_closest_small": 0, "tri_closest_stats_small": 0, "tri_any_small": 0,
             "tri_closest_thread": 0, "tri_closest_stats_thread": 0, "tri_any_thread": 0,
@@ -76,7 +78,7 @@ LAUNCHES = {"tri_closest": 0, "tri_closest_stats": 0, "tri_any": 0,
             "tri_closest_group": 0, "tri_any_group": 0, "tri_closest_group_rule": 0,
             "tri_any_group_rule": 0, "slab_grid": 0, "slab_grid_baseline": 0,
             "bvh_closest": 0, "bvh_any": 0, "bvh_closest_thread": 0, "bvh_any_thread": 0,
-            "texel_grad": 0}
+            "texel_grad": 0, "nee_sample": 0, "nee_finish": 0}
 
 WARP = 32
 # Tables of up to this many rows a cluster take the small-table walk: over

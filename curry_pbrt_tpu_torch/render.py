@@ -124,9 +124,11 @@ def make_shade_context(scene: Scene, device, ray_sort: Optional[bool] = None,
     used_ids = set(np.asarray(scene.prim_mat).tolist()) - {-1}
     used = [mat for mat in scene.materials if mat.mat_id in used_ids]
     all_delta = I.mat_all_delta_table(scene.materials, scene.material_registry)
+    families = build_families(used, n_mats=all_delta.shape[0], device=device)
+    nee_fams = I.nondelta_families(families, scene.material_registry)
     return I.ShadeContext(
         materials=used,
-        families=build_families(used, n_mats=all_delta.shape[0], device=device),
+        families=families,
         registry=scene.material_registry,
         lights=scene.lights,
         dev_lights=scene.lights.on(device),
@@ -138,6 +140,11 @@ def make_shade_context(scene: Scene, device, ray_sort: Optional[bool] = None,
         intersect_tprim=tprim,
         prim_mat=torch.as_tensor(scene.prim_mat, device=device),
         prim_light=torch.as_tensor(scene.prim_light, device=device),
+        nee_slot=torch.as_tensor(I.family_slot_table(nee_fams, all_delta.shape[0]),
+                                 device=device),
+        nee_fams=nee_fams,
+        nee_refusal=I.nee_plan_refusal(scene.lights, len(scene.envs), nee_fams,
+                                       scene.material_registry),
     )
 
 

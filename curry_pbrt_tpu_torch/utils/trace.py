@@ -48,13 +48,15 @@ launch, from ChunkPrograms.run).
 
 Counters (`count(name, n)`) add to the open span's `counts`: a sharded
 render counts this rank's real and padding rows of the film and the bytes
-of the film it gathers.
+of the film it gathers; each next-event estimation call counts the path it
+took, `nee_kernel` or `nee_plain`, where the call is made (an eager chunk,
+a recording, a train step's forward). `count_totals()` sums them by span.
 
 With tracing off nothing is read and nothing synchronises.
 
 An operator's view: run the work under `torch.profiler.profile(...)`
 (record_function ranges name the spans in its trace) and print
-`summary()`: span totals and stage milliseconds.
+`summary()`: span totals, counters and stage milliseconds.
 """
 
 from __future__ import annotations
@@ -147,6 +149,7 @@ class _Record:
     def __init__(self):
         self.lock = threading.Lock()
         self.totals = {}  # name -> [count, ns]
+        self.counts = {}  # (span name, counter) -> n, from the closed spans
         self.ring = deque(maxlen=RING)
         self.stages = {}  # label -> ms
         self.pending = []  # [(span or None, _Timeline)]
@@ -156,6 +159,9 @@ class _Record:
             t = self.totals.setdefault(node.name, [0, 0])
             t[0] += 1
             t[1] += node.end_ns - node.start_ns
+            for counter, n in node.counts.items():
+                key = (node.name, counter)
+                self.counts[key] = self.counts.get(key, 0) + n
             if node.parent is None:
                 self.ring.append(node)
 
@@ -303,6 +309,13 @@ def totals() -> dict:
         return {k: (n, ns / 1e9) for k, (n, ns) in _record.totals.items()}
 
 
+def count_totals() -> dict:
+    """{(span name, counter): n} summed over the spans closed since the
+    process started (or the last reset)."""
+    with _record.lock:
+        return dict(_record.counts)
+
+
 def total_s(name: str) -> float:
     return totals().get(name, (0, 0.0))[1]
 
@@ -342,10 +355,16 @@ def traced_pass_ms() -> Optional[dict]:
 
 
 def summary() -> str:
-    """Span totals and stage milliseconds, one line each."""
+    """Span totals, counters by span and stage milliseconds, one line
+    each."""
     lines = [f"{'span':<12} {'count':>7} {'total s':>11} {'mean ms':>10}"]
     for name, (n, s) in sorted(totals().items(), key=lambda kv: -kv[1][1]):
         lines.append(f"{name:<12} {n:>7} {s:>11.4f} {1e3 * s / n:>10.3f}")
+    counts = count_totals()
+    if counts:
+        lines.append(f"{'counter':<12} {'span':<12} {'n':>10}")
+        for (name, counter), n in sorted(counts.items(), key=lambda kv: (kv[0][1], kv[0][0])):
+            lines.append(f"{counter:<12} {name:<12} {n:>10}")
     st = stage_totals()
     if st:
         lines.append(f"{'stage':<12} {'ms':>11} {'share':>7}")
