@@ -11,36 +11,34 @@ non-zero and no result line is printed:
                per source, all started together) and prints the build time
                and ptxas' register report;
   3. kernels — the closest-hit (K1) and any-hit (K2) kernels, through the
-               warp walk (csrc/intersect_warp.cu), the per-thread walk
-               (csrc/intersect.cu) and, on the cornell_tex tables, the
-               small-table walk (csrc/intersect_small.cu) — against their
-               plain PyTorch versions and each other on the card:
+               warp walk (csrc/intersect_warp.cu) and, on the cornell_tex
+               tables, the small-table walk (csrc/intersect_small.cu) —
+               against their plain PyTorch versions on the card:
                cornell_tex tables (block_t 8, one slab) and a 5k-triangle
                soup (block_t 64, supers, 5 slabs, a NaN padding cluster),
                32k and 1M rays with dead lanes, the render path's chunk
                shape, a batch whose t_max is each ray's exact hit t (the
                first-hit-at-t_max rule) and one with ~90% dead lanes at the
                chunk shape (each table set). Hit masks must be equal, rows
-               up to exact-t ties (the small walk's equal to the per-thread
-               walk's), t bit-equal — the build's -fmad=false is what makes
-               that hold; the warp and the small walk's ms each in turns
-               with the per-thread walk's, K1b's too at the headline shape;
-  3b. spheres— the sphere kernels (K3, closest and any hit) through both
-               walks — the warp walk (csrc/intersect_warp.cu), which the
-               launch plan picks for the 64-row sphere tables, and the
-               per-thread walk (csrc/intersect.cu) — against their plain
-               versions and each other: the spherefield10k tables and a
-               soup of rotated, anisotropically scaled spheres (supers,
-               several slabs, a NaN padding cluster), 32k and 1M rays with
-               dead lanes plus the sphere field's chunk shape, a t_max-tie
-               batch on each, ~90% dead lanes at the chunk shape, and rays
-               that start on a sphere's surface (hits at t = -0.0); masks
-               and any-hit equal, t bit-equal (sign bit included), spheres
-               equal up to exact-t ties; both walks' ms in turns;
-  3c. stats  — K1 with stats=True, the warp and per-thread walks (and the
-               small walk on cornell_tex), against the plain version's
-               stats on the triangle soup, the mesh100k and the cornell_tex
-               tables: per-ray (entered, improved) counts equal, (t, row)
+               up to exact-t ties, t bit-equal — the build's -fmad=false is
+               what makes that hold; the warp walk's ms (on cornell_tex in
+               turns with the small walk's), the small walk's K1b in turns
+               with its K1 at the headline shape;
+  3b. spheres— the sphere kernels (K3, closest and any hit) through the
+               warp walk (csrc/intersect_warp.cu), the one walk the launch
+               plan has for sphere tables, against their plain versions:
+               the spherefield10k tables and a soup of rotated,
+               anisotropically scaled spheres (supers, several slabs, a NaN
+               padding cluster), 32k and 1M rays with dead lanes plus the
+               sphere field's chunk shape, a t_max-tie batch on each, ~90%
+               dead lanes at the chunk shape, and rays that start on a
+               sphere's surface (hits at t = -0.0); masks and any-hit
+               equal, t bit-equal (sign bit included), spheres equal up to
+               exact-t ties; the walk's ms;
+  3c. stats  — K1 with stats=True, the warp walk (and the small walk on
+               cornell_tex), against the plain version's stats on the
+               triangle soup, the mesh100k and the cornell_tex tables:
+               per-ray (entered, improved) counts equal, (t, row)
                unchanged by stats;
   4. slice   — cornell_tex at 32², 4 spp, depth 3 through render_scene on
                the card, against tests/goldens/cornell_tex.npy under the CPU
@@ -66,8 +64,8 @@ non-zero and no result line is printed:
                wall (peak device memory over the warm-up and that pass),
                seg/s and launches; segments within 1e-4 and the image sum
                within 1e-3 relative of the JAX anchors; the sphere field
-               must launch the plan's K3 walk alone (the warp walk; the
-               other walk's counters at 0), the ray sort must run on
+               must launch the plan's K3 walk (the warp walk), the ray sort
+               must run on
                mesh100k and mesh600k, the plan's K1 / K2 walk alone (the
                warp walk on the meshes), NEE's kernels once a bounce where
                the plan takes them (ShadeContext.nee_refusal None) and
@@ -76,18 +74,19 @@ non-zero and no result line is printed:
   7. bounds  — the kernels at the paths' own shapes, on rays captured from
                the warm-up passes of phases 5 and 6 (every K1 / K2 call of
                one headline chunk: 11 closest and 5 any hit, 4,194,304 rays
-               each, through the small and the per-thread walks — t
-               bit-equal to the plain version, rows equal between the walks,
-               the small K1b's stats equal to the plain stats, any-hit
-               equal — by cuda_ms and device_ms, and their per-pass sums,
-               which say whether the plan's walk at block_t 8 is the faster;
+               each, through the small and the warp walks — t bit-equal to
+               the plain version, rows equal to its rows up to exact-t
+               ties, the small K1b's stats equal to the plain stats,
+               any-hit equal — by cuda_ms and device_ms in turns, and their
+               per-pass sums, which say whether the plan's walk at block_t
+               8 is the faster;
                every K3 launch of one sphere-field pass: 7 closest and 3 any
                hit, 262,144 rays each; a mesh10k and a mesh100k bounce 2
-               with its shadow rays; each shape's live lanes printed): both
-               walks' and the plain ms, and the least time the card could
-               take (bytes or operations, from the live lanes and the
+               with its shadow rays; each shape's live lanes printed): the
+               warp walk's and the plain ms, and the least time the card
+               could take (bytes or operations, from the live lanes and the
                entered-tile counts of K1's stats and of the plain versions);
-               K3's per-pass sum for each walk;
+               K3's per-pass sum;
   7b. nee    — NEE's two kernels (csrc/nee.cu through ops/kernels/nee.py)
                on the path's own calls: every uniform_sample_one_light call
                (one a bounce) of the chunk that holds the middle row of the
@@ -100,31 +99,27 @@ non-zero and no result line is printed:
                headline's per-pass sums;
   8. probes  — the traversal-analysis path (curry_pbrt_tpu_torch/tools/):
                the group kernel K4 (closest and any hit; each ray tests only
-               the clusters its own gate lets in) and its baseline (the
-               `*_group_rule` kernels: every live ray of the group) against
-               their plain version — t bit-equal, rows equal (0 tie rows), any-hit
-               equal, K4 launched twice bit-equal — and K4 against K1 / K2
-               (t bit-equal, prims up to exact-t ties, any-hit equal) on the
-               phase-3 soup at 32k rays; against the plain version on a
-               t_max-tie batch of that soup and on the face-tie batch
-               (first hits at exactly t_max in a cluster whose box_near is
-               t_max) and a coplanar batch (overlapping coplanar triangles
-               over clusters: hits just below their cluster's box_near,
-               kept by the gate's slack); the A/B on mesh10k and mesh100k at the render chunk
-               (4,194,304 rays), depth 6, the same checks per bounce for K4,
-               its baseline and the per-thread walk, K4 and its baseline
-               timed in turns by cuda_ms and device_ms (K4 must be faster
-               at every bounce >= 1, within 1.03x at bounce 0), K1 / K2 and
-               the per-thread walk in turns, the plain versions once; K4's
-               bounds at mesh10k's bounces 0 and 2 — the function's (K1's /
-               K2's tiles), the design's (the gate's tiles) and the group
-               rule's;
-               the roofline on cornell_tex and mesh10k; the granularity
-               probe on mesh10k; the slab-grid probe P (csrc/slab_grid.cu:
-               the kernel, and the first port, its baseline)
-               at the JAX shape and at 16,384 blocks x 7 slabs against its
-               plain version (rtol 1e-5; the kernel's bit-equality with it
-               printed), the two timed in turns by cuda_ms and device_ms;
+               the clusters its own gate lets in) against its plain version
+               — t bit-equal, rows equal (0 tie rows), any-hit equal, K4
+               launched twice bit-equal — and against K1 / K2 (t bit-equal,
+               prims up to exact-t ties, any-hit equal) on the phase-3 soup
+               at 32k rays; against the plain version on a t_max-tie batch
+               of that soup and on the face-tie batch (first hits at
+               exactly t_max in a cluster whose box_near is t_max) and a
+               coplanar batch (overlapping coplanar triangles over
+               clusters: hits just below their cluster's box_near, kept by
+               the gate's slack); the A/B on mesh10k and mesh100k at the
+               render chunk (4,194,304 rays), depth 6, the same checks per
+               bounce, K4 and K1 / K2 timed in turns by cuda_ms, K4 by
+               device_ms too, the plain versions once; K4's bounds at
+               mesh10k's bounces 0 and 2 — the function's (K1's / K2's
+               tiles), the design's (the gate's tiles) and the group
+               rule's; the roofline on cornell_tex and mesh10k; the
+               granularity probe on mesh10k; the slab-grid probe P
+               (csrc/slab_grid.cu) at the JAX shape and at 16,384 blocks x
+               7 slabs against its plain version (rtol 1e-5; the kernel's
+               bit-equality with it printed), timed by cuda_ms and
+               device_ms, with a warm and a cold L2;
   9. grad    — the differentiable path on cornell_tex: (a) the triangle
                (tent) film at the headline, rendered twice — bit-equal, its
                mean within 3% of phase 5's box image; (b) gradients of the
@@ -147,22 +142,20 @@ non-zero and no result line is printed:
                texel: the segment sum's, the sort's, the whole backward's
                and index_put_'s ms and the bound, the kernel within 1e-5 of
                a texel's Σ|terms| of index_put_;
-  10. env + bvh — the environment light and the flat BVH: (a) both BVH
-               walks of csrc/bvh_walk.cu (closest and any hit) — the
-               live-ray walk of the render path, launched twice (bit-equal),
-               and the per-thread walk (PR 7), its A/B baseline — against
-               their plain version on a soup of 5k triangles and 64 rotated,
+  10. env + bvh — the environment light and the flat BVH: (a) the BVH
+               walk of csrc/bvh_walk.cu (closest and any hit), the live-ray
+               walk of the render path, launched twice (bit-equal), against
+               its plain version on a soup of 5k triangles and 64 rotated,
                scaled spheres and on the sphere field's BVH: 32k rays with
                dead lanes, a batch whose t_max is each ray's hit t, an
                all-dead and an all-live batch (t bit-equal, refs equal up to
-               exact-t ties, any-hit equal); both walks' ms in turns (CUDA
-               events around back-to-back calls, and the card's time
-               alone), the plain ms; (b) spherefield10k_256 and mesh10k_512 through
+               exact-t ties, any-hit equal); its ms (CUDA events around
+               back-to-back calls, and the card's time alone), the plain
+               ms; (b) spherefield10k_256 and mesh10k_512 through
                intersector="bvh" against the JAX anchors of phase 6, the
                live-ray walk alone of the walks (NEE's kernels beside it;
-               BVH build seconds printed as set-up),
-               and both walks at mesh10k's bounce-2 shapes with their
-               bound; (c)
+               BVH build seconds printed as set-up), and the walk at
+               mesh10k's bounce-2 shapes with its bound; (c)
                mesh10k_env_512 (tools/env_scene.py) through the warp K1 / K2
                and through the BVH walk, one eager pass each (a fresh
                plan's one pass, as render_scene's): each other's segments
@@ -312,10 +305,8 @@ SLICE_SUM_RTOL = 1e-3
 
 PROBE_DEPTH = 6  # bounces of the phase-8 workload
 BENCH_TIMEOUT_S = 900  # phase 13: the port's bench, all 7 configs
-# the group kernel K4's launch counters (its baseline's too): no render path
-# launches them
-GROUP_COUNTERS = ("tri_closest_group", "tri_any_group", "tri_closest_group_rule",
-                  "tri_any_group_rule")
+# the group kernel K4's launch counters: no render path launches them
+GROUP_COUNTERS = ("tri_closest_group", "tri_any_group")
 # next-event estimation's two kernels (csrc/nee.cu): a launch each a bounce
 # of a render pass whose plan they implement (ShadeContext.nee_refusal None)
 NEE_COUNTERS = ("nee_sample", "nee_finish")
@@ -520,9 +511,9 @@ def hold_any(name, h_k, h_ref, t_max, what):
 
 
 def hold_small(name, t_s, r_s, t_t, r_t, what):
-    """The small-table walk's (t, row) against the per-thread walk's: each
-    ray makes the same tests in the same order, so both are equal, t to the
-    bit and rows exactly (no tie allowance)."""
+    """Two launches of the small-table walk (K1 and K1b): each ray makes the
+    same tests in the same order, so both are equal, t to the bit and rows
+    exactly (no tie allowance)."""
     import torch
 
     if not (torch.equal(t_s.view(torch.int32), t_t.view(torch.int32)) and torch.equal(r_s, r_t)):
@@ -531,12 +522,11 @@ def hold_small(name, t_s, r_s, t_t, r_t, what):
 
 
 def check_kernels(name, tables, rays, K, plain, timing: bool, small: bool = False):
-    """K1 / K2 through the walks — the warp walk (csrc/intersect_warp.cu),
-    the per-thread walk (csrc/intersect.cu) and, with small, the small-table
-    walk (csrc/intersect_small.cu), whatever the plan picks for these tables
-    — against the plain versions and against each other on one table set and
-    ray batch; with timing, the warp and the small walk's ms each in turns
-    with the per-thread walk's, and the plain versions' ms."""
+    """K1 / K2 through the warp walk (csrc/intersect_warp.cu) and, with
+    small, the small-table walk (csrc/intersect_small.cu), whatever the plan
+    picks for these tables, against the plain versions on one table set and
+    ray batch; with timing, the warp walk's ms (with small, in turns with
+    the small walk's) and the plain versions' ms."""
     import torch
 
     o, d, t_max = rays
@@ -545,8 +535,6 @@ def check_kernels(name, tables, rays, K, plain, timing: bool, small: bool = Fals
     args = (o, d, t_max, tables.tris16, tables.caabb, tables.saabb, tables.slab_aabb)
     t_w, r_w = K.tri_closest_hit_warp(*args, **kw)
     h_w = K.tri_any_hit_warp(*args, **kw)
-    t_t, r_t = K.tri_closest_hit_thread(*args, **kw)
-    h_t = K.tri_any_hit_thread(*args, **kw)
     if small:
         t_s, r_s = K.tri_closest_hit_small(*args, **kw)
         h_s = K.tri_any_hit_small(*args, **kw)
@@ -554,49 +542,37 @@ def check_kernels(name, tables, rays, K, plain, timing: bool, small: bool = Fals
     t_p, r_p = plain["closest"](*args, **kw)
     h_p = plain["any"](*args, **kw)
     ties = hold_closest(name, tables, rays, t_w, r_w, t_p, r_p, "warp K1 vs plain")
-    hold_closest(name, tables, rays, t_t, r_t, t_p, r_p, "per-thread K1 vs plain")
-    hold_closest(name, tables, rays, t_w, r_w, t_t, r_t, "warp K1 vs per-thread K1")
     hold_any(name, h_w, h_p, t_max, "warp K2 vs plain")
-    hold_any(name, h_w, h_t, t_max, "warp K2 vs per-thread K2")
     if small:
         hold_closest(name, tables, rays, t_s, r_s, t_p, r_p, "small K1 vs plain")
-        hold_small(name, t_s, r_s, t_t, r_t, "small K1 vs per-thread K1")
         hold_any(name, h_s, h_p, t_max, "small K2 vs plain")
     hit = r_w >= 0
-    walks = "warp, small and per-thread walks" if small else "warp and per-thread walks"
+    walks = "warp and small walks" if small else "warp walk"
     log(f"  {name}: {n} rays ({int((t_max > 0).sum())} live), {int(hit.sum())} closest hits, "
         f"{int(h_w.sum())} any hits, {ties} tie rows — {walks}: masks equal, t bit-equal to the "
-        f"plain version and to each other, rows equal up to ties (small and per-thread: equal), "
-        f"K2 equal")
+        f"plain version, rows equal up to ties, K2 equal")
     err = lambda t: (t[hit] - t_p[hit]).abs().max().item() if hit.any() else 0.0  # noqa: E731
     any_err = lambda h: (h.float() - h_p.float()).abs().max().item() if n else 0.0  # noqa: E731
-    out = {"max_abs_err": err(t_w), "thread_max_abs_err": err(t_t),
-           "any_max_abs_err": any_err(h_w), "any_thread_max_abs_err": any_err(h_t)}
+    out = {"max_abs_err": err(t_w), "any_max_abs_err": any_err(h_w)}
     if small:
         out["small_max_abs_err"], out["any_small_max_abs_err"] = err(t_s), any_err(h_s)
     if timing:
-        out["closest_thread_ms"], out["closest_ms"] = turns(
-            lambda: K.tri_closest_hit_thread(*args, **kw),
-            lambda: K.tri_closest_hit_warp(*args, **kw), 20)
-        out["any_thread_ms"], out["any_ms"] = turns(
-            lambda: K.tri_any_hit_thread(*args, **kw),
-            lambda: K.tri_any_hit_warp(*args, **kw), 20)
+        warp = (lambda: K.tri_closest_hit_warp(*args, **kw),
+                lambda: K.tri_any_hit_warp(*args, **kw))
         if small:
-            out["closest_thread_vs_small_ms"], out["closest_small_ms"] = turns(
-                lambda: K.tri_closest_hit_thread(*args, **kw),
-                lambda: K.tri_closest_hit_small(*args, **kw), 20)
-            out["any_thread_vs_small_ms"], out["any_small_ms"] = turns(
-                lambda: K.tri_any_hit_thread(*args, **kw),
-                lambda: K.tri_any_hit_small(*args, **kw), 20)
+            out["closest_ms"], out["closest_small_ms"] = turns(
+                warp[0], lambda: K.tri_closest_hit_small(*args, **kw), 20)
+            out["any_ms"], out["any_small_ms"] = turns(
+                warp[1], lambda: K.tri_any_hit_small(*args, **kw), 20)
+        else:
+            out["closest_ms"], out["any_ms"] = cuda_ms(warp[0], 20), cuda_ms(warp[1], 20)
         out["closest_plain_ms"] = cuda_ms(lambda: plain["closest"](*args, **kw), 3)
         out["any_plain_ms"] = cuda_ms(lambda: plain["any"](*args, **kw), 3)
-        log(f"    K1 warp {out['closest_ms']:.4f} ms, per-thread {out['closest_thread_ms']:.4f} "
-            f"(plain {out['closest_plain_ms']:.3f}); K2 warp {out['any_ms']:.4f} ms, per-thread "
-            f"{out['any_thread_ms']:.4f} (plain {out['any_plain_ms']:.3f})")
+        log(f"    K1 warp {out['closest_ms']:.4f} ms (plain {out['closest_plain_ms']:.3f}); K2 "
+            f"warp {out['any_ms']:.4f} ms (plain {out['any_plain_ms']:.3f})")
         if small:
-            log(f"    K1 small {out['closest_small_ms']:.4f} ms, per-thread "
-                f"{out['closest_thread_vs_small_ms']:.4f}; K2 small {out['any_small_ms']:.4f} ms, "
-                f"per-thread {out['any_thread_vs_small_ms']:.4f} (in turns)")
+            log(f"    K1 small {out['closest_small_ms']:.4f} ms, K2 small "
+                f"{out['any_small_ms']:.4f} ms (in turns with the warp walk)")
     return out
 
 
@@ -649,12 +625,11 @@ def hold_sphere_closest(name, tables, rays, t_k, r_k, t_ref, r_ref, what):
 
 
 def check_sphere_kernels(name, tables, rays, S, plain, reps=(20, 3), timed=("closest", "any")):
-    """K3 (closest and any hit) through both walks — the warp walk
-    (csrc/intersect_warp.cu) and the per-thread walk (csrc/intersect.cu) —
-    against the plain versions and each other on one sphere table set and
-    ray batch; returns errors, the -0.0 hits, the plain versions'
-    entered-tile sums (the bound's input) and, with reps, the `timed`
-    kernels' ms: both walks in turns, and the plain version's."""
+    """K3 (closest and any hit) through the warp walk (csrc/intersect_warp.cu)
+    against the plain versions on one sphere table set and ray batch;
+    returns errors, the -0.0 hits, the plain versions' entered-tile sums
+    (the bound's input) and, with reps, the `timed` kernels' ms and the
+    plain versions'."""
     import torch
 
     o, d, t_max = rays
@@ -663,49 +638,41 @@ def check_sphere_kernels(name, tables, rays, S, plain, reps=(20, 3), timed=("clo
     kw = tables.kw
     t_w, r_w = S.sphere_closest_hit_warp(*args, **kw)
     h_w = S.sphere_any_hit_warp(*args, **kw)
-    t_t, r_t = S.sphere_closest_hit_thread(*args, **kw)
-    h_t = S.sphere_any_hit_thread(*args, **kw)
     torch.cuda.synchronize()
     t_p, r_p, entered, _ = plain["sphere_closest"](*args, **kw, stats=True)
     h_p, any_entered = plain["sphere_any"](*args, **kw, stats=True)
     ties = hold_sphere_closest(name, tables, rays, t_w, r_w, t_p, r_p, "warp K3 vs plain")
-    hold_sphere_closest(name, tables, rays, t_t, r_t, t_p, r_p, "per-thread K3 vs plain")
-    hold_sphere_closest(name, tables, rays, t_w, r_w, t_t, r_t, "warp K3 vs per-thread K3")
     hold_any(name, h_w, h_p, t_max, "warp K3 any-hit vs plain")
-    hold_any(name, h_t, h_p, t_max, "per-thread K3 any-hit vs plain")
     hit = r_w >= 0
     neg_zero = int((hit & (t_w == 0) & torch.signbit(t_w)).sum())
     log(f"  {name}: {n} rays ({int((t_max > 0).sum())} live), {int(hit.sum())} closest hits "
-        f"({neg_zero} at -0.0), {int(h_w.sum())} any hits, {ties} tie spheres — warp and "
-        f"per-thread walks: masks equal, t bit-equal (sign included) to the plain version and to "
-        f"each other, spheres equal up to ties, any-hit equal")
+        f"({neg_zero} at -0.0), {int(h_w.sum())} any hits, {ties} tie spheres — warp walk: "
+        f"masks equal, t bit-equal (sign included) to the plain version, spheres equal up to "
+        f"ties, any-hit equal")
     err = lambda t: (t[hit] - t_p[hit]).abs().max().item() if hit.any() else 0.0  # noqa: E731
     any_err = lambda h: (h.float() - h_p.float()).abs().max().item() if n else 0.0  # noqa: E731
-    out = {"max_abs_err": err(t_w), "thread_max_abs_err": err(t_t),
-           "any_max_abs_err": any_err(h_w), "any_thread_max_abs_err": any_err(h_t),
+    out = {"max_abs_err": err(t_w), "any_max_abs_err": any_err(h_w),
            "entered": int(entered.sum()), "any_entered": int(any_entered.sum()), "n": n,
            "live": int((t_max > 0).sum()), "neg_zero": neg_zero,
            "table_bytes": table_bytes(*args[3:])}
     if reps:
-        fns = {"closest": (S.sphere_closest_hit_thread, S.sphere_closest_hit_warp,
-                           plain["sphere_closest"]),
-               "any": (S.sphere_any_hit_thread, S.sphere_any_hit_warp, plain["sphere_any"])}
+        fns = {"closest": (S.sphere_closest_hit_warp, plain["sphere_closest"]),
+               "any": (S.sphere_any_hit_warp, plain["sphere_any"])}
         for kind in timed:
-            thread, warp, pl = fns[kind]
-            out[kind + "_thread_ms"], out[kind + "_ms"] = turns(
-                lambda: thread(*args, **kw), lambda: warp(*args, **kw), reps[0])
+            warp, pl = fns[kind]
+            out[kind + "_ms"] = cuda_ms(lambda: warp(*args, **kw), reps[0])
             out[kind + "_plain_ms"] = cuda_ms(lambda: pl(*args, **kw), reps[1])
-            log(f"    K3 {kind} warp {out[kind + '_ms']:.4f} ms, per-thread "
-                f"{out[kind + '_thread_ms']:.4f} (plain {out[kind + '_plain_ms']:.3f})")
+            log(f"    K3 {kind} warp {out[kind + '_ms']:.4f} ms (plain "
+                f"{out[kind + '_plain_ms']:.3f})")
     return out
 
 
 def check_stats(name, tables, rays, K, plain, reps=None, small=False):
-    """K1 stats=True through the warp and per-thread walks (and, with small,
-    the small-table walk) vs the plain version's stats (and t bit-equal to
-    it); returns the entered-tile sum and, with reps, the warp walk's times
-    (the small walk's, with small) with and without stats in turns with the
-    per-thread walk's, and the plain ones."""
+    """K1 stats=True through the warp walk (and, with small, the small-table
+    walk) vs the plain version's stats (and t bit-equal to it); returns the
+    entered-tile sum and, with reps, the warp walk's times (the small
+    walk's, with small) without and with stats in turns, and the plain
+    ones."""
     import torch
 
     o, d, t_max = rays
@@ -715,8 +682,7 @@ def check_stats(name, tables, rays, K, plain, reps=None, small=False):
     hit = r_p >= 0
     err = lambda t: (t[hit] - t_p[hit]).abs().max().item() if hit.any() else 0.0  # noqa: E731
     errs = {}
-    walks = [("warp", K.tri_closest_hit_warp, ""),
-             ("per-thread", K.tri_closest_hit_thread, "thread_")]
+    walks = [("warp", K.tri_closest_hit_warp, "")]
     if small:
         walks.append(("small", K.tri_closest_hit_small, "small_"))
     for walk, fn, sfx in walks:
@@ -741,11 +707,8 @@ def check_stats(name, tables, rays, K, plain, reps=None, small=False):
         f"plain stats, t bit-equal, (t, row) unchanged by stats")
     if reps:
         fn = K.tri_closest_hit_small if small else K.tri_closest_hit_warp
-        out["thread_ms"], out["ms"] = turns(lambda: K.tri_closest_hit_thread(*args, **kw),
-                                            lambda: fn(*args, **kw), reps[0])
-        out["stats_thread_ms"], out["stats_ms"] = turns(
-            lambda: K.tri_closest_hit_thread(*args, **kw, stats=True),
-            lambda: fn(*args, **kw, stats=True), reps[0])
+        out["ms"], out["stats_ms"] = turns(lambda: fn(*args, **kw),
+                                           lambda: fn(*args, **kw, stats=True), reps[0])
         out["plain_ms"] = cuda_ms(lambda: plain["closest"](*args, **kw), reps[1])
         out["stats_plain_ms"] = cuda_ms(lambda: plain["closest"](*args, **kw, stats=True),
                                         reps[1])
@@ -753,38 +716,34 @@ def check_stats(name, tables, rays, K, plain, reps=None, small=False):
 
 
 def check_any(name, tables, rays, K, plain, reps):
-    """K2 through both walks vs the plain version on one batch (shadow
-    rays); returns the plain version's entered tiles (the bound's input) and
-    both walks' times in turns and the plain one's."""
+    """K2 through the warp walk vs the plain version on one batch (shadow
+    rays); returns the plain version's entered tiles (the bound's input),
+    the walk's time and the plain one's."""
     import torch
 
     o, d, t_max = rays
     args = (o, d, t_max, tables.tris16, tables.caabb, tables.saabb, tables.slab_aabb)
     kw = tables.kw
     h_w = K.tri_any_hit_warp(*args, **kw)
-    h_t = K.tri_any_hit_thread(*args, **kw)
     torch.cuda.synchronize()
     h_p, entered = plain["any"](*args, **kw, stats=True)
     hold_any(name, h_w, h_p, t_max, "warp K2 vs plain")
-    hold_any(name, h_t, h_p, t_max, "per-thread K2 vs plain")
     err = lambda h: (h.float() - h_p.float()).abs().max().item() if h.numel() else 0.0  # noqa: E731
     out = {"any_entered": int(entered.sum()), "n": o.shape[0], "live": int((t_max > 0).sum()),
            "hits": int(h_w.sum()), "table_bytes": table_bytes(*args[3:]), "block": kw["block_t"],
-           "max_abs_err": err(h_w), "thread_max_abs_err": err(h_t)}
-    out["thread_ms"], out["ms"] = turns(lambda: K.tri_any_hit_thread(*args, **kw),
-                                        lambda: K.tri_any_hit_warp(*args, **kw), reps[0])
+           "max_abs_err": err(h_w)}
+    out["ms"] = cuda_ms(lambda: K.tri_any_hit_warp(*args, **kw), reps[0])
     out["plain_ms"] = cuda_ms(lambda: plain["any"](*args, **kw), reps[1])
     log(f"  {name}: {out['n']} rays ({out['live']} live), {out['hits']} any hits, "
-        f"{out['any_entered']} entered tiles (plain) — warp and per-thread K2 equal to the plain "
-        f"version")
+        f"{out['any_entered']} entered tiles (plain) — warp K2 equal to the plain version")
     return out
 
 
 def check_head_call(name, tables, rays, K, plain, kind, reps):
     """One K1 (kind "closest") or K2 ("any") call captured from the
-    headline's pass, through the small-table and the per-thread walks: t
-    bit-equal to the plain version's, rows equal to the per-thread walk's
-    (to the plain version's up to exact-t ties), K1b's stats equal to the
+    headline's pass, through the small-table walk (the plan's) and the warp
+    walk: t bit-equal to the plain version's, rows equal to its rows up to
+    exact-t ties, K1b's (t, row) equal to K1's and its stats equal to the
     plain stats, any-hit equal to the plain version's. Both walks' ms in
     turns, by CUDA events around back-to-back calls (cuda_ms) and by the
     card's time alone (device_ms); the plain version's ms; the bound from
@@ -795,17 +754,17 @@ def check_head_call(name, tables, rays, K, plain, kind, reps):
     n, live = o.shape[0], int((t_max > 0).sum())
     args = (o, d, t_max, tables.tris16, tables.caabb, tables.saabb, tables.slab_aabb)
     kw = tables.kw
-    small, thread = ((K.tri_closest_hit_small, K.tri_closest_hit_thread) if kind == "closest"
-                     else (K.tri_any_hit_small, K.tri_any_hit_thread))
+    small, warp = ((K.tri_closest_hit_small, K.tri_closest_hit_warp) if kind == "closest"
+                   else (K.tri_any_hit_small, K.tri_any_hit_warp))
     out = {"n": n, "live": live, "table_bytes": table_bytes(*args[3:]), "block": kw["block_t"]}
     if kind == "closest":
         t_s, r_s = small(*args, **kw)
         t_b, r_b, ent_s, imp_s = small(*args, **kw, stats=True)
-        t_t, r_t = thread(*args, **kw)
+        t_w, r_w = warp(*args, **kw)
         torch.cuda.synchronize()
         t_p, r_p, ent_p, imp_p = plain["closest"](*args, **kw, stats=True)
         hold_closest(name, tables, rays, t_s, r_s, t_p, r_p, "small K1 vs plain")
-        hold_small(name, t_s, r_s, t_t, r_t, "small K1 vs per-thread K1")
+        hold_closest(name, tables, rays, t_w, r_w, t_p, r_p, "warp K1 vs plain")
         hold_small(name, t_b, r_b, t_s, r_s, "small K1b vs small K1")
         if not (torch.equal(ent_s, ent_p) and torch.equal(imp_s, imp_p)):
             raise AssertionError(f"{name}: small K1b stats differ from the plain stats")
@@ -816,27 +775,25 @@ def check_head_call(name, tables, rays, K, plain, kind, reps):
                              TRI_TEST_OPS)
     else:
         h_s = small(*args, **kw)
-        h_t = thread(*args, **kw)
+        h_w = warp(*args, **kw)
         torch.cuda.synchronize()
         h_p, ent_p = plain["any"](*args, **kw, stats=True)
         hold_any(name, h_s, h_p, t_max, "small K2 vs plain")
-        hold_any(name, h_t, h_p, t_max, "per-thread K2 vs plain")
+        hold_any(name, h_w, h_p, t_max, "warp K2 vs plain")
         out["entered"], out["hits"] = int(ent_p.sum()), int(h_s.sum())
         out["max_abs_err"] = (h_s.float() - h_p.float()).abs().max().item() if n else 0.0
         out["bound"] = bound(n, live, 1, out["table_bytes"], out["entered"], out["block"],
                              TRI_TEST_OPS)
-    out["thread_ms"], out["ms"] = turns(lambda: thread(*args, **kw), lambda: small(*args, **kw),
-                                        reps)
-    out["thread_dev_ms"], out["dev_ms"] = turns(lambda: thread(*args, **kw),
-                                                lambda: small(*args, **kw), reps, device_ms)
+    out["warp_ms"], out["ms"] = turns(lambda: warp(*args, **kw), lambda: small(*args, **kw), reps)
+    out["warp_dev_ms"], out["dev_ms"] = turns(lambda: warp(*args, **kw),
+                                              lambda: small(*args, **kw), reps, device_ms)
     out["plain_ms"] = cuda_ms(lambda: plain[kind](*args, **kw), 1)
     return out
 
 
 def check_group(name, gtab, ktab, gprim, kprim, rays, G, t_any=None):
-    """K4 (closest and any hit) and its baseline (`*_group_rule`) against the
-    plain version, and K4 against K1 / K2 (ktab; None: not compared) on one
-    ray batch: t bit-equal to the plain version's, rows equal to its rows (0
+    """K4 (closest and any hit) against the plain version, and against K1 /
+    K2 (ktab; None: not compared) on one ray batch: t bit-equal to the plain version's, rows equal to its rows (0
     tie rows), any-hit equal; K4 launched twice bit-equal; no hit on a dead
     lane; t bit-equal to K1's, prims equal to K1's (through each table's
     prim) up to exact-t ties, any-hit equal to K2's. t_any: the any-hit
@@ -853,16 +810,13 @@ def check_group(name, gtab, ktab, gprim, kprim, rays, G, t_any=None):
     h4 = G.tri_any_hit_groups(*a_args, **kw)
     t4_2, r4_2 = G.tri_closest_hit_groups(*c_args, **kw)
     h4_2 = G.tri_any_hit_groups(*a_args, **kw)
-    t4b, r4b = G.tri_closest_hit_group_rule(*c_args, **kw)
-    h4b = G.tri_any_hit_group_rule(*a_args, **kw)
     torch.cuda.synchronize()
     t_p, r_p, ent8, _ = G.tri_closest_hit_groups_plain(*c_args, **kw, stats=True)
     h_p, any_ent8 = G.tri_any_hit_groups_plain(*a_args, **kw, stats=True)
     _, _, ent_g, _ = G.tri_closest_hit_groups_plain(*c_args, **kw, stats=True, gate=True)
     _, any_ent_g = G.tri_any_hit_groups_plain(*a_args, **kw, stats=True, gate=True)
     bits = lambda x: x.view(torch.int32)  # noqa: E731
-    for what, t, r, h in (("K4", t4, r4, h4), ("K4 relaunched", t4_2, r4_2, h4_2),
-                          ("the K4 baseline", t4b, r4b, h4b)):
+    for what, t, r, h in (("K4", t4, r4, h4), ("K4 relaunched", t4_2, r4_2, h4_2)):
         if not torch.equal(bits(t), bits(t_p)):
             raise AssertionError(f"{name}: {what} t not bit-equal to the plain version on "
                                  f"{int((t != t_p).sum())} rays")
@@ -892,7 +846,7 @@ def check_group(name, gtab, ktab, gprim, kprim, rays, G, t_any=None):
                                  f"{n_bad} rays")
     hit = r4 >= 0
     log(f"  {name}: {o.shape[0]} rays, {int(hit.sum())} closest hits, {int(h4.sum())} any hits; "
-        f"K4, relaunched and baseline: t bit-equal to the plain version, 0 tie rows, any-hit "
+        f"K4 and relaunched: t bit-equal to the plain version, 0 tie rows, any-hit "
         f"equal; vs K1 / K2: {n_mis} tie prims; tiles group rule {int(ent8.sum())} / any "
         f"{int(any_ent8.sum())}, gate {int(ent_g.sum())} / any {int(any_ent_g.sum())}")
     return int(hit.sum())
@@ -950,13 +904,12 @@ def hold_bvh(name, bvh, rays, t_k, r_k, t_ref, r_ref, what):
 
 
 def check_bvh(name, bvh, rays, reps=None):
-    """Both BVH walks (closest and any hit, csrc/bvh_walk.cu) against their
-    plain version (ops/bvh.py's lockstep loop) on the card: the live-ray
-    walk of the render path, launched twice (bit-equal: its live list's
-    order varies, the results must not), and the per-thread walk of PR 7,
-    its A/B baseline. t bit-equal, refs equal up to exact-t ties, any-hit
-    equal. Returns the errors, the plain version's work counts (the bound's
-    input) and, with reps, both walks' ms timed in turns and the plain
+    """The BVH walk (closest and any hit, csrc/bvh_walk.cu) against its plain
+    version (ops/bvh.py's lockstep loop) on the card: the live-ray walk of
+    the render path, launched twice (bit-equal: its live list's order
+    varies, the results must not). t bit-equal, refs equal up to exact-t
+    ties, any-hit equal. Returns the errors, the plain version's work counts
+    (the bound's input) and, with reps, the walk's ms and the plain
     version's."""
     import torch
 
@@ -969,8 +922,6 @@ def check_bvh(name, bvh, rays, reps=None):
     h_k = BK.bvh_any(bvh, o, d, t_max)
     t_k2, r_k2 = BK.bvh_closest(bvh, o, d, t_max)
     h_k2 = BK.bvh_any(bvh, o, d, t_max)
-    t_t, r_t = BK.bvh_closest_per_thread(bvh, o, d, t_max)
-    h_t = BK.bvh_any_per_thread(bvh, o, d, t_max)
     torch.cuda.synchronize()
     if not (torch.equal(t_k.view(torch.int32), t_k2.view(torch.int32))
             and torch.equal(r_k, r_k2) and torch.equal(h_k, h_k2)):
@@ -980,8 +931,6 @@ def check_bvh(name, bvh, rays, reps=None):
     h_p = ra_p >= 0
     ties = hold_bvh(name, bvh, rays, t_k, r_k, t_p, r_p, "live-ray walk vs plain")
     hold_any(name, h_k, h_p, t_max, "live-ray any-hit walk vs plain")
-    hold_bvh(name, bvh, rays, t_t, r_t, t_p, r_p, "per-thread walk vs plain")
-    hold_any(name, h_t, h_p, t_max, "per-thread any-hit walk vs plain")
 
     def t_err(t, r):
         hit = r >= 0
@@ -991,7 +940,6 @@ def check_bvh(name, bvh, rays, reps=None):
         return (h.float() - h_p.float()).abs().max().item() if n else 0.0
 
     out = {"max_abs_err": t_err(t_k, r_k), "any_max_abs_err": h_err(h_k),
-           "thread_max_abs_err": t_err(t_t, r_t), "any_thread_max_abs_err": h_err(h_t),
            "n": n, "live": int((t_max > 0).sum()), "hits": int((r_k >= 0).sum()),
            "any_hits": int(h_k.sum()), "ties": ties,
            "work": (int(nodes.sum()), int(tri.sum()), int(sph.sum())),
@@ -1000,35 +948,29 @@ def check_bvh(name, bvh, rays, reps=None):
     log(f"  {name}: {n} rays ({out['live']} live), {out['hits']} closest hits, "
         f"{out['any_hits']} any hits, {ties} tie refs; plain work per live ray: "
         f"{out['work'][0] / max(out['live'], 1):.1f} nodes, "
-        f"{(out['work'][1] + out['work'][2]) / max(out['live'], 1):.2f} prim tests — both walks: "
-        f"t bit-equal to the plain version, refs equal up to ties, any-hit equal; the live-ray "
-        f"walk twice bit-equal")
+        f"{(out['work'][1] + out['work'][2]) / max(out['live'], 1):.2f} prim tests — the "
+        f"live-ray walk: t bit-equal to the plain version, refs equal up to ties, any-hit equal; "
+        f"twice bit-equal")
     if reps:
-        # both walks in turns: by cuda_ms (back-to-back calls, the wrapper's
-        # host work included where it outlasts the kernels), the ms of the
-        # kernels line as for every kernel; and by device_ms (the card's time
-        # alone). The lane pass alone (every lane dead) by device_ms
-        closest = (lambda: BK.bvh_closest(bvh, o, d, t_max),
-                   lambda: BK.bvh_closest_per_thread(bvh, o, d, t_max))
-        any_hit = (lambda: BK.bvh_any(bvh, o, d, t_max),
-                   lambda: BK.bvh_any_per_thread(bvh, o, d, t_max))
-        out["ms"], out["thread_ms"] = turns(*closest, reps[0])
-        out["any_ms"], out["any_thread_ms"] = turns(*any_hit, reps[0])
-        out["dev_ms"], out["thread_dev_ms"] = turns(*closest, reps[0], device_ms)
-        out["any_dev_ms"], out["any_thread_dev_ms"] = turns(*any_hit, reps[0], device_ms)
+        # by cuda_ms (back-to-back calls, the wrapper's host work included
+        # where it outlasts the kernels), the ms of the kernels line as for
+        # every kernel; and by device_ms (the card's time alone). The lane
+        # pass alone (every lane dead) by device_ms
+        closest = lambda: BK.bvh_closest(bvh, o, d, t_max)  # noqa: E731
+        any_hit = lambda: BK.bvh_any(bvh, o, d, t_max)  # noqa: E731
+        out["ms"], out["any_ms"] = cuda_ms(closest, reps[0]), cuda_ms(any_hit, reps[0])
+        out["dev_ms"], out["any_dev_ms"] = device_ms(closest, reps[0]), device_ms(any_hit, reps[0])
         dead = torch.zeros_like(t_max)
         out["lane_ms"] = device_ms(lambda: BK.bvh_closest(bvh, o, d, dead), reps[0])
         out["any_lane_ms"] = device_ms(lambda: BK.bvh_any(bvh, o, d, dead), reps[0])
         out["plain_ms"] = cuda_ms(lambda: PB.bvh_traverse(bvh, o, d, t_max), reps[1])
         out["any_plain_ms"] = cuda_ms(lambda: PB.bvh_traverse(bvh, o, d, t_max, any_hit=True),
                                       reps[1])
-        log(f"    cuda_ms: live-ray walk closest {out['ms']:.4f} ms (per-thread walk (PR 7) "
-            f"{out['thread_ms']:.4f}, plain {out['plain_ms']:.3f}), any {out['any_ms']:.4f} ms "
-            f"(per-thread {out['any_thread_ms']:.4f}, plain {out['any_plain_ms']:.3f}); "
-            f"device_ms: closest {out['dev_ms']:.4f} (per-thread {out['thread_dev_ms']:.4f}), "
-            f"any {out['any_dev_ms']:.4f} (per-thread {out['any_thread_dev_ms']:.4f}); the lane "
-            f"pass alone (every lane dead, device_ms) {out['lane_ms']:.4f} / "
-            f"{out['any_lane_ms']:.4f} ms")
+        log(f"    cuda_ms: live-ray walk closest {out['ms']:.4f} ms (plain "
+            f"{out['plain_ms']:.3f}), any {out['any_ms']:.4f} ms (plain "
+            f"{out['any_plain_ms']:.3f}); device_ms: closest {out['dev_ms']:.4f}, any "
+            f"{out['any_dev_ms']:.4f}; the lane pass alone (every lane dead, device_ms) "
+            f"{out['lane_ms']:.4f} / {out['any_lane_ms']:.4f} ms")
     return out
 
 
@@ -1170,10 +1112,9 @@ def check_nee(name, c, reps: int = 3) -> dict:
 # true>(float const*, ...)". → (the LAUNCHES key of the wrapper that
 # launches it, the kernel's part of that launch) by port_kernel.
 PORT_KERNEL = re.compile(
-    r"^(?:void )?(curry::)?(?:\(anonymous namespace\)::)?"
+    r"^(?:void )?(?:curry::)?(?:\(anonymous namespace\)::)?"
     r"(closest_warp_kernel|any_warp_kernel|small_kernel|walk_kernel|compact_kernel"
-    r"|closest_kernel|any_kernel|closest_group_kernel|any_group_kernel|closest_group_rule_kernel"
-    r"|any_group_rule_kernel|slab_grid_kernel|slab_grid_baseline_kernel|nee_sample_kernel"
+    r"|closest_group_kernel|any_group_kernel|slab_grid_kernel|nee_sample_kernel"
     r"|nee_finish_kernel)(<[^()]*>)?\(")
 
 
@@ -1185,7 +1126,7 @@ def port_kernel(name: str):
     m = PORT_KERNEL.search(name)
     if m is None:
         return None
-    in_curry, fn, targs = m.group(1), m.group(2), m.group(3) or ""
+    fn, targs = m.group(1), m.group(2) or ""
     flags = re.findall(r"\b(true|false)\b", targs)
     prim = "sphere" if "SpherePrim" in targs else "tri"
     # <Prim, STATS> of the closest-hit table walks
@@ -1198,14 +1139,8 @@ def port_kernel(name: str):
         return ("tri_closest_stats_small" if flags[1] == "true" else "tri_closest_small"), ""
     if fn in ("walk_kernel", "compact_kernel"):  # <ANY>
         return ("bvh_any" if flags[0] == "true" else "bvh_closest"), fn.split("_")[0]
-    if fn in ("closest_kernel", "any_kernel"):
-        if in_curry:  # intersect.cu's per-thread table walk
-            return f"{prim}_{fn.split('_')[0]}{stats}_thread", ""
-        return f"bvh_{fn.split('_')[0]}_thread", ""  # bvh_walk.cu's per-thread walk
     return {"closest_group_kernel": "tri_closest_group", "any_group_kernel": "tri_any_group",
-            "closest_group_rule_kernel": "tri_closest_group_rule",
-            "any_group_rule_kernel": "tri_any_group_rule", "slab_grid_kernel": "slab_grid",
-            "slab_grid_baseline_kernel": "slab_grid_baseline", "nee_sample_kernel": "nee_sample",
+            "slab_grid_kernel": "slab_grid", "nee_sample_kernel": "nee_sample",
             "nee_finish_kernel": "nee_finish"}[fn], ""
 
 
@@ -1397,18 +1332,16 @@ def main() -> int:
         mostly_dead(make_rays(chunk, 73, box_c, 280.0, dev), 74), K, plain, timing=True,
         small=True)
     # the headline shape's entered tiles, for the K1/K2 bounds; the small
-    # walk's K1b against the per-thread walk's in turns
+    # walk's K1 and K1b in turns
     head_rays = make_rays(chunk, 10 + chunk % 97, box_c, 280.0, dev)
     head_stats = check_stats(f"cornell_tex/{chunk} stats", ctab, head_rays, K, plain,
                              reps=(20, 1), small=True)
     hs = timings[("cornell", chunk)]
-    log(f"[kernels] block_t 8 (PER_THREAD_MAX_BLOCK_T {K.PER_THREAD_MAX_BLOCK_T}; the plan: "
-        f"{ctab.plan}) at the synthetic headline shape: K1 small {hs['closest_small_ms']:.4f} ms "
-        f"vs per-thread {hs['closest_thread_vs_small_ms']:.4f}, K2 small {hs['any_small_ms']:.4f} "
-        f"vs per-thread {hs['any_thread_vs_small_ms']:.4f}; warp K1 {hs['closest_ms']:.4f}, K2 "
-        f"{hs['any_ms']:.4f} (per-thread {hs['closest_thread_ms']:.4f} / "
-        f"{hs['any_thread_ms']:.4f}); the plan follows phase 7's sums over the headline's own "
-        f"calls")
+    log(f"[kernels] block_t 8 (SMALL_MAX_BLOCK_T {K.SMALL_MAX_BLOCK_T}; the plan: "
+        f"{ctab.plan}) at the synthetic headline shape, in turns: K1 small "
+        f"{hs['closest_small_ms']:.4f} ms vs warp {hs['closest_ms']:.4f}, K2 small "
+        f"{hs['any_small_ms']:.4f} vs warp {hs['any_ms']:.4f}; the plan follows phase 7's sums "
+        f"over the headline's own calls")
     _, head_any_entered = plain["any"](*head_rays, ctab.tris16, ctab.caabb, ctab.saabb,
                                        ctab.slab_aabb, **ctab.kw, stats=True)
     head_any_entered = int(head_any_entered.sum())
@@ -1496,9 +1429,8 @@ def main() -> int:
         return counters[walk], tuple(c for w, cs in counters.items() if w != walk for c in cs)
 
     def ran_alone(launches, walk):
-        """The path's K1 / K2 walk launched, the other walks, the group
-        kernel K4 (and its baseline) and the plain versions did not run on
-        the card."""
+        """The path's K1 / K2 walk launched, the other walk, the group
+        kernel K4 and the plain versions did not run on the card."""
         need, off = walk_counters(walk)
         return min(launches[k] for k in need) > 0 and not any(launches[k] for k in off) \
             and not any(launches[k] for k in GROUP_COUNTERS) and not calls["plain"]
@@ -1690,21 +1622,19 @@ def main() -> int:
                                  f"plan takes them (refusal: {plan.ctx.nee_refusal}) and else "
                                  f"never")
         log(f"[configs] {name}: NEE {'through csrc/nee.cu' if plan.ctx.nee_refusal is None else 'on the plain path: ' + plan.ctx.nee_refusal}")
-        if name.startswith("sphere"):  # the plan's K3 walk alone
-            need, off = (("sphere_closest" + x, "sphere_any" + x)
-                         for x in {"warp": ("", "_thread"), "thread": ("_thread", "")}[ftab.plan])
-            if min(launches[k] for k in need) <= 0 or any(launches[k] for k in off):
-                raise AssertionError(f"{name} did not run through the {ftab.plan} walk's K3 "
-                                     f"alone: {launches}")
+        if name.startswith("sphere") and min(launches["sphere_closest"],
+                                             launches["sphere_any"]) <= 0:
+            raise AssertionError(f"{name} did not run through the {ftab.plan} walk's K3: "
+                                 f"{launches}")
         if name in ("mesh100k_512", "mesh600k_256") and sorts <= 0:
             raise AssertionError(f"{name}: the ray sort did not run")
         del plan
 
     # ---- 7. the kernels at the paths' own shapes, and their bounds
     phases.start("7 bounds")
-    K.reset_launches()  # the stats kernel's and the per-thread K3's path: this phase
+    K.reset_launches()  # the stats kernel's path: this phase
     # every K1 / K2 call of one headline chunk, through the small-table and
-    # the per-thread walks in turns; the per-pass sums (x the pass's chunks)
+    # the warp walks in turns; the per-pass sums (x the pass's chunks)
     head_calls = {}
     for kind in ("closest", "any"):
         call_nums = sorted(c for cfg, key, c in captured
@@ -1722,29 +1652,29 @@ def main() -> int:
             head_calls[(kind, call)] = st
             log(f"[bounds] K{1 if kind == 'closest' else 2} at the headline's {kind} call {call} "
                 f"({what}; {st['n']} rays, {st['live']} live, {st['hits']} hits) on {card}: small "
-                f"{st['ms']:.4f} ms (device {st['dev_ms']:.4f}), per-thread {st['thread_ms']:.4f} "
-                f"(device {st['thread_dev_ms']:.4f}), plain {st['plain_ms']:.2f}, bound "
+                f"{st['ms']:.4f} ms (device {st['dev_ms']:.4f}), warp {st['warp_ms']:.4f} "
+                f"(device {st['warp_dev_ms']:.4f}), plain {st['plain_ms']:.2f}, bound "
                 f"{st['bound'][0]:.4f} ms ({st['bound'][1]}; {st['entered']} entered tiles) — "
-                + ("t bit-equal, rows equal to the per-thread walk's, K1b stats equal"
-                   if kind == "closest" else "any-hit equal"))
+                + ("both walks t bit-equal, rows equal up to ties, small K1b stats equal"
+                   if kind == "closest" else "both walks any-hit equal"))
     n_chunks = head_launches["tri_closest" + K.WALK_SUFFIX[ctab.plan]] // (2 * depth + 1)
     head_sum = {}
     for kind in ("closest", "any"):
         sts = [st for (k, _), st in head_calls.items() if k == kind]
         head_sum[kind] = {f: n_chunks * sum(st[f] for st in sts)
-                          for f in ("ms", "dev_ms", "thread_ms", "thread_dev_ms", "plain_ms")}
+                          for f in ("ms", "dev_ms", "warp_ms", "warp_dev_ms", "plain_ms")}
         head_sum[kind]["bound"] = n_chunks * sum(st["bound"][0] for st in sts)
         hsum = head_sum[kind]
         log(f"[bounds] K{1 if kind == 'closest' else 2} per headline pass ({len(sts)} calls a "
             f"chunk x {n_chunks} chunks) on {card}: small {hsum['ms']:.4f} ms (device "
-            f"{hsum['dev_ms']:.4f}), per-thread {hsum['thread_ms']:.4f} ms (device "
-            f"{hsum['thread_dev_ms']:.4f}), plain {hsum['plain_ms']:.1f} ms, bound "
+            f"{hsum['dev_ms']:.4f}), warp {hsum['warp_ms']:.4f} ms (device "
+            f"{hsum['warp_dev_ms']:.4f}), plain {hsum['plain_ms']:.1f} ms, bound "
             f"{hsum['bound']:.4f} ms")
     small_total = head_sum["closest"]["ms"] + head_sum["any"]["ms"]
-    thread_total = head_sum["closest"]["thread_ms"] + head_sum["any"]["thread_ms"]
-    faster = "small" if small_total < thread_total else "thread"
-    log(f"[bounds] K1 + K2 per headline pass: small {small_total:.4f} ms, per-thread "
-        f"{thread_total:.4f} ms — the plan's walk at block_t 8 ({ctab.plan}) "
+    warp_total = head_sum["closest"]["warp_ms"] + head_sum["any"]["warp_ms"]
+    faster = "small" if small_total < warp_total else "warp"
+    log(f"[bounds] K1 + K2 per headline pass: small {small_total:.4f} ms, warp "
+        f"{warp_total:.4f} ms — the plan's walk at block_t 8 ({ctab.plan}) "
         f"{'has the lower sum, as the plan assumes' if faster == ctab.plan else 'does NOT have the lower sum: revisit the plan'}")
     # every K3 launch of one sphere-field pass, in launch order: closest
     # calls 1 to 2·depth + 1 (bounce b's hit is call 2b + 1, its MIS leg
@@ -1776,19 +1706,15 @@ def main() -> int:
                                 ftab.kw["block_s"], SPHERE_TEST_OPS)
             k3_pass[(kind, call)] = st
             log(f"[bounds] K3 {kind} at the sphere field's call {call} ({what}; {st['n']} rays, "
-                f"{st['live']} live) on {card}: warp {st[kind + '_ms']:.4f} ms, per-thread "
-                f"{st[kind + '_thread_ms']:.4f} ms (plain {st[kind + '_plain_ms']:.3f}), bound "
-                f"{st['bound'][0]:.4f} ms ({st['bound'][1]}; {st[ent]} entered tiles)")
+                f"{st['live']} live) on {card}: warp {st[kind + '_ms']:.4f} ms (plain "
+                f"{st[kind + '_plain_ms']:.3f}), bound {st['bound'][0]:.4f} ms "
+                f"({st['bound'][1]}; {st[ent]} entered tiles)")
     k3_sum = {w: sum(st[k + sfx + "_ms"] for (k, _), st in k3_pass.items())
-              for w, sfx in (("warp", ""), ("thread", "_thread"), ("plain", "_plain"))}
+              for w, sfx in (("warp", ""), ("plain", "_plain"))}
     k3_sum["bound"] = sum(st["bound"][0] for st in k3_pass.values())
-    faster = "warp" if k3_sum["warp"] < k3_sum["thread"] else "thread"
-    log(f"[bounds] K3 per sphere-field pass ({len(k3_pass)} launches) on "
-        f"{card}: warp {k3_sum['warp']:.4f} ms, per-thread {k3_sum['thread']:.4f} ms, plain "
-        f"{k3_sum['plain']:.2f} ms, bound {k3_sum['bound']:.4f} ms — the plan's walk "
-        f"({ftab.plan}) "
-        f"{'has the lower sum, as the plan assumes' if faster == ftab.plan else 'does NOT have the lower sum: revisit the plan'}")
-    k3_thread_launches = (K.LAUNCHES["sphere_closest_thread"], K.LAUNCHES["sphere_any_thread"])
+    log(f"[bounds] K3 per sphere-field pass ({len(k3_pass)} launches) on {card}: warp "
+        f"{k3_sum['warp']:.4f} ms, plain {k3_sum['plain']:.2f} ms, bound "
+        f"{k3_sum['bound']:.4f} ms")
     f_cl, f_any = k3_pass[("closest", 3)], k3_pass[("any", 2)]  # bounce 1
     mesh_rows, mesh_any = {}, {}
     for name in ("mesh10k_512", "mesh100k_512"):
@@ -1800,7 +1726,6 @@ def main() -> int:
         mesh_any[name] = check_any(f"{name} bounce-2 shadow rays", tab,
                                    captured[(name, "tri_any", 3)], K, plain, reps=(5, 1))
     stats_launches = K.LAUNCHES["tri_closest_stats"]
-    stats_thread_launches = K.LAUNCHES["tri_closest_stats_thread"]
     stats_small_launches = K.LAUNCHES["tri_closest_stats_small"]
 
     # every bound counts a live ray's o, d and t_max and a dead ray's t_max
@@ -1822,40 +1747,32 @@ def main() -> int:
     k1s_b = k1_bound(st100, out_b=16)
     k1s_head_b = k1_bound(head_stats, out_b=16)
     log(f"[bounds] on {card}: K1 synthetic headline shape ({chunk} rays; the plan's walk there: "
-        f"{ctab.plan}): small {head_shape['closest_small_ms']:.4f} ms (per-thread in turns "
-        f"{head_shape['closest_thread_vs_small_ms']:.4f}), per-thread "
-        f"{head_shape['closest_thread_ms']:.4f} ms, warp {head_shape['closest_ms']:.4f} ms, bound "
-        f"{k1_b[0]:.4f} ms ({k1_b[1]}; {head_stats['entered']} entered tiles); K1b small "
-        f"{head_stats['stats_ms']:.4f} ms, per-thread {head_stats['stats_thread_ms']:.4f}, bound "
-        f"{k1s_head_b[0]:.4f}; K2 small {head_shape['any_small_ms']:.4f} ms (per-thread in turns "
-        f"{head_shape['any_thread_vs_small_ms']:.4f}), per-thread "
-        f"{head_shape['any_thread_ms']:.4f} ms, warp {head_shape['any_ms']:.4f} ms, bound "
-        f"{k2_b[0]:.4f} ms ({k2_b[1]}; {head_any_entered} entered tiles)")
+        f"{ctab.plan}): small {head_shape['closest_small_ms']:.4f} ms, warp "
+        f"{head_shape['closest_ms']:.4f} ms (in turns), bound {k1_b[0]:.4f} ms ({k1_b[1]}; "
+        f"{head_stats['entered']} entered tiles); K1b small {head_stats['stats_ms']:.4f} ms (K1 "
+        f"in turns {head_stats['ms']:.4f}), bound {k1s_head_b[0]:.4f}; K2 small "
+        f"{head_shape['any_small_ms']:.4f} ms, warp {head_shape['any_ms']:.4f} ms (in turns), "
+        f"bound {k2_b[0]:.4f} ms ({k2_b[1]}; {head_any_entered} entered tiles)")
     for name, st in mesh_rows.items():
         b = k1_bound(st)
         log(f"[bounds] K1 at {name}'s bounce-2 shape ({st['n']} rays, {st['live']} live): warp "
-            f"{st['ms']:.4f} ms, per-thread {st['thread_ms']:.4f} ms (plain {st['plain_ms']:.3f}), "
-            f"bound {b[0]:.4f} ms ({b[1]}; {st['entered']} entered tiles, "
-            f"{st['entered'] / st['n']:.2f}/ray); with stats warp {st['stats_ms']:.4f} ms, "
-            f"per-thread {st['stats_thread_ms']:.4f} ms (plain {st['stats_plain_ms']:.3f})")
+            f"{st['ms']:.4f} ms (plain {st['plain_ms']:.3f}), bound {b[0]:.4f} ms ({b[1]}; "
+            f"{st['entered']} entered tiles, {st['entered'] / st['n']:.2f}/ray); with stats warp "
+            f"{st['stats_ms']:.4f} ms (plain {st['stats_plain_ms']:.3f})")
         sa = mesh_any[name]
         b = k2_bound(sa)
         log(f"[bounds] K2 at {name}'s bounce-2 shadow shape ({sa['n']} rays, {sa['live']} live): "
-            f"warp {sa['ms']:.4f} ms, per-thread {sa['thread_ms']:.4f} ms (plain "
-            f"{sa['plain_ms']:.3f}), bound {b[0]:.4f} ms ({b[1]}; {sa['any_entered']} entered "
-            f"tiles of the plain version)")
+            f"warp {sa['ms']:.4f} ms (plain {sa['plain_ms']:.3f}), bound {b[0]:.4f} ms ({b[1]}; "
+            f"{sa['any_entered']} entered tiles of the plain version)")
     for (tab, n), tm in sorted(timings.items()):
         small_ms = (f"; small K1 {tm['closest_small_ms']:.4f} / K2 {tm['any_small_ms']:.4f} ms "
-                    f"(per-thread in turns {tm['closest_thread_vs_small_ms']:.4f} / "
-                    f"{tm['any_thread_vs_small_ms']:.4f})" if "closest_small_ms" in tm else "")
-        log(f"[kernels] {tab}/{n} rays on {card}: K1 warp {tm['closest_ms']:.4f} ms, per-thread "
-            f"{tm['closest_thread_ms']:.4f} (plain {tm['closest_plain_ms']:.4f}); K2 warp "
-            f"{tm['any_ms']:.4f} ms, per-thread {tm['any_thread_ms']:.4f} (plain "
+                    f"(in turns with the warp walk)" if "closest_small_ms" in tm else "")
+        log(f"[kernels] {tab}/{n} rays on {card}: K1 warp {tm['closest_ms']:.4f} ms (plain "
+            f"{tm['closest_plain_ms']:.4f}); K2 warp {tm['any_ms']:.4f} ms (plain "
             f"{tm['any_plain_ms']:.4f}){small_ms}")
     for (tab, n), tm in sorted(sph_timings.items()):
-        log(f"[spheres] {tab}/{n} rays on {card}: K3 closest warp {tm['closest_ms']:.4f} ms, "
-            f"per-thread {tm['closest_thread_ms']:.4f} (plain {tm['closest_plain_ms']:.4f}); any "
-            f"warp {tm['any_ms']:.4f} ms, per-thread {tm['any_thread_ms']:.4f} (plain "
+        log(f"[spheres] {tab}/{n} rays on {card}: K3 closest warp {tm['closest_ms']:.4f} ms "
+            f"(plain {tm['closest_plain_ms']:.4f}); any warp {tm['any_ms']:.4f} ms (plain "
             f"{tm['any_plain_ms']:.4f})")
 
     # ---- 7b. next-event estimation's kernels on the paths' own calls
@@ -1954,30 +1871,16 @@ def main() -> int:
                               stats_at=(0, 2) if name == "mesh10k_512" else ())
     ab_launches = dict(K.LAUNCHES)
     for s_ab in ab.values():
-        log(f"[probes] K4 / K4 baseline / K1 (warp walk) / per-thread K1 A/B on {card}:\n"
-            + PK.report(s_ab))
+        log(f"[probes] K4 / K1 (warp walk) A/B on {card}:\n" + PK.report(s_ab))
         PK.check(s_ab)
     log(f"[probes] A/B launches: {ab_launches}")
-    if min(ab_launches[k] for k in GROUP_COUNTERS + ("tri_closest", "tri_any",
-                                                     "tri_closest_thread", "tri_any_thread")) <= 0:
-        raise AssertionError("the probe path did not launch K4, its baseline and both K1 / K2 "
-                             "walks")
-    for name, s_ab in ab.items():
-        for r in s_ab["bounces"]:
-            where = f"{name} bounce {r['bounce']}"
-            for kind, new, old in (("closest", "k4_ms", "k4_rule_ms"),
-                                   ("any", "k4_any_ms", "k4_any_rule_ms")):
-                if r["bounce"] >= 1 and not r[new] < r[old]:
-                    raise AssertionError(f"{where}: K4 {kind} ({r[new]:.4f} ms) is not faster "
-                                         f"than its baseline ({r[old]:.4f} ms)")
-                if r["bounce"] == 0 and r[new] > 1.03 * r[old]:
-                    raise AssertionError(f"{where}: K4 {kind} ({r[new]:.4f} ms) is slower than "
-                                         f"1.03x its baseline ({r[old]:.4f} ms)")
+    if min(ab_launches[k] for k in GROUP_COUNTERS + ("tri_closest", "tri_any")) <= 0:
+        raise AssertionError("the probe path did not launch K4 and K1 / K2")
 
     # K4's bounds at mesh10k's bounces 0 and 2: the function's (K1's / K2's
     # per-ray entered tiles of 64 rows on the same rays: the least work),
     # the design's (the gate's tiles of 128 rows: the kernel's own work) and
-    # the group rule's (the baseline's work)
+    # the group rule's (every ray of a visited cluster's group)
     peak = RL.card_peak(dev)
     s10 = ab["mesh10k_512"]
     pair = s10["pair"]
@@ -1995,16 +1898,14 @@ def main() -> int:
         share = lambda tiles, ms: 100.0 * RL.tile_ops(tiles, blk4) / (ms * 1e-3) / peak["ops_per_s"]  # noqa: E731
         k4_bounds[r["bounce"]] = (b_fn, a_fn)
         log(f"[bounds] K4 at mesh10k's bounce-{r['bounce']} shape ({n} rays, {live} live) on "
-            f"{card}: closest {r['k4_ms']:.4f} ms, device {r['k4_dev_ms']:.4f} (baseline "
-            f"{r['k4_rule_ms']:.4f}, device {r['k4_rule_dev_ms']:.4f}; K1 {r['k1_ms']:.4f}; "
-            f"plain {r['plain_ms']:.1f}); function bound {b_fn[0]:.4f} ms ({b_fn[1]}; K1's "
-            f"{r['k1_tiles']} tiles of {blk1}), design bound {b_gate[0]:.4f} ms ({b_gate[1]}; the "
-            f"gate's {r['gate_tiles']} tiles of {blk4}), group rule {r['group_tiles']} tiles of "
-            f"{blk4} ({b_grp[0]:.4f} ms); the gate's tiles at {share(r['gate_tiles'], r['k4_ms']):.1f}% "
-            f"of the derived peak, the baseline's group tiles at "
-            f"{share(r['group_tiles'], r['k4_rule_ms']):.1f}%. Any {r['k4_any_ms']:.4f} ms, device "
-            f"{r['k4_any_dev_ms']:.4f} (baseline {r['k4_any_rule_ms']:.4f}, device "
-            f"{r['k4_any_rule_dev_ms']:.4f}; K2 {r['k2_ms']:.4f}; plain {r['any_plain_ms']:.1f}); "
+            f"{card}: closest {r['k4_ms']:.4f} ms, device {r['k4_dev_ms']:.4f} (K1 "
+            f"{r['k1_ms']:.4f}; plain {r['plain_ms']:.1f}); function bound {b_fn[0]:.4f} ms "
+            f"({b_fn[1]}; K1's {r['k1_tiles']} tiles of {blk1}), design bound {b_gate[0]:.4f} ms "
+            f"({b_gate[1]}; the gate's {r['gate_tiles']} tiles of {blk4}), group rule "
+            f"{r['group_tiles']} tiles of {blk4} ({b_grp[0]:.4f} ms); the gate's tiles at "
+            f"{share(r['gate_tiles'], r['k4_ms']):.1f}% of the derived peak. Any "
+            f"{r['k4_any_ms']:.4f} ms, device {r['k4_any_dev_ms']:.4f} (K2 {r['k2_ms']:.4f}; "
+            f"plain {r['any_plain_ms']:.1f}); "
             f"function bound {a_fn[0]:.4f} ms ({a_fn[1]}; K2's {r['k2_tiles']} tiles of {blk1}), "
             f"design bound {a_gate[0]:.4f} ms ({a_gate[1]}; the gate's {r['gate_any_tiles']}), "
             f"group rule {r['group_any_tiles']} ({a_grp[0]:.4f} ms)")
@@ -2019,21 +1920,16 @@ def main() -> int:
                       wl=Workload(config_scene("mesh10k_512"), dev))
     log(f"[granularity] {card}:\n" + PG.report(gran))
 
-    K.reset_launches()  # P's path: the probe at both shapes, the kernel and its baseline
+    K.reset_launches()  # P's path: the probe at both shapes
     p_small = PS.run(2, 3, "cuda")
     p_big = PS.run(16384, 7, "cuda")
     p_launches = K.LAUNCHES["slab_grid"]
-    p_base_small = PS.run(2, 3, "cuda", kernel=PS.slab_grid_baseline)
-    p_base_big = PS.run(16384, 7, "cuda", kernel=PS.slab_grid_baseline)
-    p_base_launches = K.LAUNCHES["slab_grid_baseline"]
-    if p_launches != 2 or p_base_launches != 2:
-        raise AssertionError(f"the P probe launched its kernel {p_launches} times and the "
-                             f"baseline {p_base_launches}, not 2 each")
+    if p_launches != 2:
+        raise AssertionError(f"the P probe launched its kernel {p_launches} times, not 2")
     p_in = PS.make_inputs(16384, 7, device=dev)
     p_bits = torch.equal(PS.slab_grid(*p_in), PS.slab_grid_plain(*p_in))
-    p_ms, p_base_ms = turns(lambda: PS.slab_grid(*p_in), lambda: PS.slab_grid_baseline(*p_in), 50)
-    p_dev, p_base_dev = turns(lambda: PS.slab_grid(*p_in), lambda: PS.slab_grid_baseline(*p_in),
-                              50, timer=device_ms)
+    p_ms = cuda_ms(lambda: PS.slab_grid(*p_in), 50)
+    p_dev = device_ms(lambda: PS.slab_grid(*p_in), 50)
     p_plain_ms = cuda_ms(lambda: PS.slab_grid_plain(*p_in), 5)
     # back to back, the 33.5 MB that P reads and writes stay in the 50 MB L2;
     # cold: each launch after a 256 MB fill that evicts them, less the fill
@@ -2046,25 +1942,19 @@ def main() -> int:
         return run
 
     fill_ms = device_ms(lambda: p_flush.fill_(0.0), 50)
-    p_cold, p_base_cold = turns(after_flush(lambda: PS.slab_grid(*p_in)),
-                                after_flush(lambda: PS.slab_grid_baseline(*p_in)), 50,
-                                timer=device_ms)
+    p_cold = device_ms(after_flush(lambda: PS.slab_grid(*p_in)), 50)
     fill_ms = (fill_ms + device_ms(lambda: p_flush.fill_(0.0), 50)) / 2
-    p_cold, p_base_cold = p_cold - fill_ms, p_base_cold - fill_ms
+    p_cold -= fill_ms
     del p_flush
     p_n, p_s = p_in[1].shape[1], 7
     # row 0 of the rays in, the output out, the slabs and one table entry
     # per slab; 65 operations per slab sum, 2 per (ray, slab)
     p_b = least_ms(p_n * 8 + p_s * (8 * 8 + 1) * 4, p_s * 65 + p_n * p_s * 2)
-    log(f"[P] {card}: 2 blocks x 3 slabs max |d| {p_small[1]:.3g} (rel {p_small[2]:.3g}; "
-        f"baseline {p_base_small[1]:.3g}), 16384 blocks x 7 slabs max |d| {p_big[1]:.3g} (rel "
-        f"{p_big[2]:.3g}; baseline {p_base_big[1]:.3g}, rel {p_base_big[2]:.3g}) vs plain (rtol "
-        f"{PS.RTOL}), bit-equal to plain at 16384 x 7: {p_bits}; in turns {p_ms:.4f} ms, device "
-        f"{p_dev:.4f}, device with a cold L2 {p_cold:.4f} (baseline, the first port: "
-        f"{p_base_ms:.4f}, device {p_base_dev:.4f}, cold {p_base_cold:.4f}; the 256 MB fill "
-        f"{fill_ms:.4f}); plain "
-        f"{p_plain_ms:.4f}; bound {p_b[0]:.4f} ms ({p_b[1]}); launches {p_launches} (baseline "
-        f"{p_base_launches})")
+    log(f"[P] {card}: 2 blocks x 3 slabs max |d| {p_small[1]:.3g} (rel {p_small[2]:.3g}), "
+        f"16384 blocks x 7 slabs max |d| {p_big[1]:.3g} (rel {p_big[2]:.3g}) vs plain (rtol "
+        f"{PS.RTOL}), bit-equal to plain at 16384 x 7: {p_bits}; {p_ms:.4f} ms, device "
+        f"{p_dev:.4f}, device with a cold L2 {p_cold:.4f} (the 256 MB fill {fill_ms:.4f}); plain "
+        f"{p_plain_ms:.4f}; bound {p_b[0]:.4f} ms ({p_b[1]}); launches {p_launches}")
 
     # ---- 9. the differentiable path
     phases.start("9 grad")
@@ -2274,16 +2164,15 @@ def main() -> int:
 
     def bvh_alone(launches):
         """The live-ray BVH walk launched (closest and any hit), no other
-        traversal kernel (the per-thread BVH walk included); NEE's kernels
-        may run beside it."""
+        traversal kernel; NEE's kernels may run beside it."""
         need = ("bvh_closest", "bvh_any")
         return min(launches[k] for k in need) > 0 and not any(
             v for k, v in launches.items() if k not in need + NEE_COUNTERS)
 
-    # (a) both walks against their plain version: a soup of 5k triangles and
-    # 64 rotated, scaled spheres, and the sphere field's BVH, at 32k rays
-    # with dead lanes, a batch whose t_max is each ray's hit t, an all-dead
-    # and an all-live batch; both walks' ms in turns
+    # (a) the walk against its plain version: a soup of 5k triangles and 64
+    # rotated, scaled spheres, and the sphere field's BVH, at 32k rays with
+    # dead lanes, a batch whose t_max is each ray's hit t, an all-dead and an
+    # all-live batch; its ms
     t0 = time.time()
     soup = bvh_soup(5000, 64, seed=1)
     soup_bvh = PB.device_bvh(PB.build_flat_bvh(soup), soup.tris, soup.spheres, dev)
@@ -2364,27 +2253,20 @@ def main() -> int:
                                  f"{launches}")
         del plan
     m10_bvh = bvhs["mesh10k_512"]
-    K.reset_launches()  # the A/B's launches of the per-thread walk
     bvh_cl = check_bvh("mesh10k bvh bounce 2", m10_bvh, captured_bvh["closest"], reps=(20, 1))
     bvh_any = check_bvh("mesh10k bvh bounce-2 shadow rays", m10_bvh, captured_bvh["any"],
                         reps=(20, 1))
-    bvh_ab_launches = dict(K.LAUNCHES)
     m10_launches = bvh_runs["mesh10k_512"]["launches"]
     bvh_cl_b, bvh_any_b = bvh_bound(bvh_cl, False), bvh_bound(bvh_any, True)
     log(f"[bounds] BVH walks at mesh10k's bvh bounce-2 shape ({bvh_cl['n']} rays, "
         f"{bvh_cl['live']} live) on {card}: closest, live-ray walk {bvh_cl['ms']:.4f} ms, "
-        f"device_ms {bvh_cl['dev_ms']:.4f} (per-thread walk (PR 7) {bvh_cl['thread_ms']:.4f}, "
-        f"device_ms {bvh_cl['thread_dev_ms']:.4f}; plain {bvh_cl['plain_ms']:.3f}), bound "
+        f"device_ms {bvh_cl['dev_ms']:.4f} (plain {bvh_cl['plain_ms']:.3f}), bound "
         f"{bvh_cl_b[0]:.4f} ms ({bvh_cl_b[1]}; nodes, tri, sphere tests {bvh_cl['work']}); "
         f"shadow rays ({bvh_any['n']} rays, {bvh_any['live']} live): any, live-ray walk "
-        f"{bvh_any['any_ms']:.4f} ms, device_ms {bvh_any['any_dev_ms']:.4f} (per-thread "
-        f"{bvh_any['any_thread_ms']:.4f}, device_ms {bvh_any['any_thread_dev_ms']:.4f}; plain "
+        f"{bvh_any['any_ms']:.4f} ms, device_ms {bvh_any['any_dev_ms']:.4f} (plain "
         f"{bvh_any['any_plain_ms']:.3f}), bound {bvh_any_b[0]:.4f} ms ({bvh_any_b[1]}; "
         f"{bvh_any['any_work']}); per mesh10k_512 bvh pass: {m10_launches['bvh_closest']} "
-        f"closest + {m10_launches['bvh_any']} any launches of the live-ray walk, "
-        f"{m10_launches['bvh_closest_thread']} + {m10_launches['bvh_any_thread']} of the "
-        f"per-thread walk; the A/B above: {bvh_ab_launches['bvh_closest_thread']} + "
-        f"{bvh_ab_launches['bvh_any_thread']} per-thread launches")
+        f"closest + {m10_launches['bvh_any']} any launches")
 
     # (c) mesh10k_env_512 through the warp K1 / K2 and through the BVH walk:
     # each other's segments within 1e-4 and image sum within 1e-3; wall,
@@ -2800,13 +2682,12 @@ def main() -> int:
 
     phases.start()
     # ---- report
-    src = "curry_pbrt_tpu_torch/csrc/intersect.cu"
     wsrc = "curry_pbrt_tpu_torch/csrc/intersect_warp.cu"
     ssrc = "curry_pbrt_tpu_torch/csrc/intersect_small.cu"
     field_l = config_runs["spherefield10k_256"]["launches"]
     m100_l = config_runs["mesh100k_512"]["launches"]
 
-    def entry(name, replaces, launches, err, ms, plain_ms, b, source=src):
+    def entry(name, replaces, launches, err, ms, plain_ms, b, source):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
@@ -2817,8 +2698,8 @@ def main() -> int:
     grp_src = "curry_pbrt_tpu_torch/csrc/intersect_group.cu"
     bsrc = "curry_pbrt_tpu_torch/csrc/bvh_walk.cu"
     # K1 / K2: the warp walk at mesh100k's bounce-2 shapes (its render path:
-    # launches per pass), the small-table and the per-thread walk at the
-    # synthetic headline shape (launches per headline pass; K1b's in phase 7)
+    # launches per pass), the small-table walk at the synthetic headline
+    # shape (launches per headline pass; K1b's in phase 7)
     kernels = [
         entry("tri_closest_hit", f"{tri_k}:709", m100_l["tri_closest"], st100["max_abs_err"],
               st100["ms"], st100["plain_ms"], k1_100_b, wsrc),
@@ -2835,58 +2716,28 @@ def main() -> int:
         entry("tri_closest_hit_stats_small", f"{tri_k}:712", stats_small_launches,
               head_stats["stats_small_max_abs_err"], head_stats["stats_ms"],
               head_stats["stats_plain_ms"], k1s_head_b, ssrc),
-        entry("tri_closest_hit_thread", f"{tri_k}:709", head_launches["tri_closest_thread"],
-              head_shape["thread_max_abs_err"], head_shape["closest_thread_ms"],
-              head_shape["closest_plain_ms"], k1_b),
-        entry("tri_any_hit_thread", f"{tri_k}:760", head_launches["tri_any_thread"],
-              head_shape["any_thread_max_abs_err"], head_shape["any_thread_ms"],
-              head_shape["any_plain_ms"], k2_b),
-        entry("tri_closest_hit_stats_thread", f"{tri_k}:712", stats_thread_launches,
-              st100["stats_thread_max_abs_err"], st100["stats_thread_ms"],
-              st100["stats_plain_ms"], k1s_b),
-        # K3: both walks at the sphere field's bounce-1 shapes; the warp
-        # walk's launches per pass, the per-thread walk's in phase 7's A/B
+        # K3: the warp walk at the sphere field's bounce-1 shapes, its
+        # launches per pass
         entry("sphere_closest_hit", f"{sph_k}:216", field_l["sphere_closest"],
               f_cl["max_abs_err"], f_cl["closest_ms"], f_cl["closest_plain_ms"], k3c_b, wsrc),
         entry("sphere_any_hit", f"{sph_k}:256", field_l["sphere_any"], f_any["any_max_abs_err"],
               f_any["any_ms"], f_any["any_plain_ms"], k3a_b, wsrc),
-        entry("sphere_closest_hit_thread", f"{sph_k}:216", k3_thread_launches[0],
-              f_cl["thread_max_abs_err"], f_cl["closest_thread_ms"], f_cl["closest_plain_ms"],
-              k3c_b),
-        entry("sphere_any_hit_thread", f"{sph_k}:256", k3_thread_launches[1],
-              f_any["any_thread_max_abs_err"], f_any["any_thread_ms"], f_any["any_plain_ms"],
-              k3a_b),
-        # K4 and its baseline at mesh10k's A/B bounce 2 (launches: the
-        # phase-8 A/B's); the bound the function's (K1's / K2's tiles)
+        # K4 at mesh10k's A/B bounce 2 (launches: the phase-8 A/B's); the
+        # bound the function's (K1's / K2's tiles)
         entry("tri_closest_hit_groups", f"{grp_k}:345", ab_launches["tri_closest_group"],
               r2["max_abs_err"], r2["k4_ms"], r2["plain_ms"], k4c_b, grp_src),
         entry("tri_any_hit_groups", f"{grp_k}:382", ab_launches["tri_any_group"],
               r2["any_max_abs_err"], r2["k4_any_ms"], r2["any_plain_ms"], k4a_b, grp_src),
-        entry("tri_closest_hit_group_rule", f"{grp_k}:345",
-              ab_launches["tri_closest_group_rule"], r2["rule_max_abs_err"], r2["k4_rule_ms"],
-              r2["plain_ms"], k4c_b, grp_src),
-        entry("tri_any_hit_group_rule", f"{grp_k}:382", ab_launches["tri_any_group_rule"],
-              r2["rule_any_max_abs_err"], r2["k4_any_rule_ms"], r2["any_plain_ms"], k4a_b,
-              grp_src),
         entry("slab_grid_probe", "tools/probe_slab_grid.py:34", p_launches, p_big[1], p_ms,
               p_plain_ms, p_b, "curry_pbrt_tpu_torch/csrc/slab_grid.cu"),
-        entry("slab_grid_probe_baseline", "tools/probe_slab_grid.py:34", p_base_launches,
-              p_base_big[1], p_base_ms, p_plain_ms, p_b, "curry_pbrt_tpu_torch/csrc/slab_grid.cu"),
-        # the BVH walks (no TPU counterpart: they replace a jnp while_loop) at
-        # mesh10k's bvh bounce-2 shapes, their launches per mesh10k_512 bvh
-        # pass (the per-thread walk, PR 7's A/B baseline: 0)
+        # the BVH walk (no TPU counterpart: it replaces a jnp while_loop) at
+        # mesh10k's bvh bounce-2 shapes, its launches per mesh10k_512 bvh pass
         entry("bvh_closest_hit", "curry_pbrt_tpu/ops/bvh.py:298",
               m10_launches["bvh_closest"], bvh_cl["max_abs_err"],
               bvh_cl["ms"], bvh_cl["plain_ms"], bvh_cl_b, bsrc),
         entry("bvh_any_hit", "curry_pbrt_tpu/ops/bvh.py:298",
               m10_launches["bvh_any"], bvh_any["any_max_abs_err"],
               bvh_any["any_ms"], bvh_any["any_plain_ms"], bvh_any_b, bsrc),
-        entry("bvh_closest_hit_per_thread", "curry_pbrt_tpu/ops/bvh.py:298",
-              m10_launches["bvh_closest_thread"], bvh_cl["thread_max_abs_err"],
-              bvh_cl["thread_ms"], bvh_cl["plain_ms"], bvh_cl_b, bsrc),
-        entry("bvh_any_hit_per_thread", "curry_pbrt_tpu/ops/bvh.py:298",
-              m10_launches["bvh_any_thread"], bvh_any["any_thread_max_abs_err"],
-              bvh_any["any_thread_ms"], bvh_any["any_plain_ms"], bvh_any_b, bsrc),
         # the texel gather's backward (no TPU counterpart: XLA's scatter-add)
         # at a sub-chunk's shape, its launches per config-4 step, the whole
         # backward (sort included) against index_put_

@@ -1,7 +1,6 @@
 // Closest-hit and any-hit traversal of the flat threaded BVH, for Hopper
 // (sm_90a): the live-ray walk, one thread per LIVE ray over the nodes' hit /
-// miss links with no stack, each node one 32-byte row; and, as its A/B
-// baseline only, the first design (one thread per lane over six node arrays).
+// miss links with no stack, each node one 32-byte row.
 //
 // Replaces the JAX package's bvh_traverse (curry_pbrt_tpu/ops/bvh.py:298), a
 // jnp lax.while_loop over per-lane node pointers, not a Pallas kernel; its
@@ -30,10 +29,11 @@
 // work per node (a 25-operation slab test) and per leaf primitive test (84
 // for a triangle, 73 for a sphere), and, at the render chunk, the bytes of
 // the dead lanes (their t_max read, their outputs written). The first design
-// started one thread per lane: at a mesh bounce 2.7% of the lanes are live,
-// so nearly every warp carried one live ray and held its SM for that ray's
-// whole walk; each node step waited on six loads from six arrays; and small
-// batches left SMs idle. This design:
+// (retired since; this one measured 1.8x faster at a mesh bounce, PERF.md)
+// started one thread per lane over six node arrays: at a mesh bounce 2.7% of
+// the lanes are live, so nearly every warp carried one live ray and held its
+// SM for that ray's whole walk; each node step waited on six loads from six
+// arrays; and small batches left SMs idle. This design:
 //   - live rays only, with no host sync: a first pass over the lanes, four
 //     a thread as 16-byte loads and stores, writes every lane's outputs as a
 //     dead lane's and appends the live lanes' indices to a list (a ballot per
@@ -75,10 +75,10 @@ constexpr int ROW_COLS = 16;
 constexpr int WARP = 32;
 constexpr int COUNT_BITS = 3;  // first << COUNT_BITS | count in a node row's word 7
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int THREADS = 128;      // a block, both walks
+constexpr int THREADS = 128;      // a block, both passes
 constexpr int MAX_DEVICES = 64;  // the live-ray walk's grid cached per device below this ordinal
 
-// Primitive rows, shared by both walks.
+// The primitive rows a leaf's slots index.
 struct Prims {
     const int* refs;  // (K,) tri index, or n_tris + sphere index
     const float* tris16;
@@ -119,9 +119,6 @@ __device__ __forceinline__ void leaf(const Prims& p, int first, int count, const
         }
     }
 }
-
-// ---------------------------------------------------------------------------
-// the live-ray walk over node rows
 
 // One node row: bmin xyz and the miss link's bits; bmax xyz and the bits of
 // first << COUNT_BITS | count.
@@ -309,65 +306,6 @@ int launch_live(LiveArgs a, cudaStream_t stream) {
     return static_cast<int>(cudaGetLastError());
 }
 
-// ---------------------------------------------------------------------------
-// the first design (the A/B baseline): one thread per lane, six node arrays
-
-struct Bvh {
-    const float* bmin;  // (M, 3)
-    const float* bmax;  // (M, 3)
-    const int* hit;     // (M,)
-    const int* miss;    // (M,)
-    const int* first;   // (M,) first prim slot of a leaf, -1 internal
-    const int* count;   // (M,)
-    Prims p;
-};
-
-// The walk of one live ray from the root.
-template <bool ANY>
-__device__ __forceinline__ void walk(const Bvh& b, const Ray& r, const Consts& k, float& t_best,
-                                     int& ref_best) {
-    int ptr = 0;
-    while (ptr >= 0) {
-        const bool enter =
-            slab_enter(b.bmin + 3 * (size_t)ptr, b.bmax + 3 * (size_t)ptr, r, t_best, k.t_scale);
-        if (enter) {
-            const int first = b.first[ptr];
-            if (first >= 0) leaf(b.p, first, b.count[ptr], r, k, t_best, ref_best);
-        }
-        ptr = enter ? b.hit[ptr] : b.miss[ptr];
-        if (ANY && ref_best >= 0) ptr = -1;
-    }
-}
-
-__global__ void closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                               const float* __restrict__ t_max, Bvh b, Consts k, int n,
-                               float* __restrict__ t_out, int* __restrict__ ref_out) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    float t_best = t_max[i];
-    int ref_best = -1;
-    if (t_best > 0.0f) {
-        const Ray r = curry::make_ray(o + 3 * (size_t)i, d + 3 * (size_t)i);
-        walk<false>(b, r, k, t_best, ref_best);
-    }
-    t_out[i] = t_best;  // t_max where there is no hit, as the plain version
-    ref_out[i] = ref_best;
-}
-
-__global__ void any_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                           const float* __restrict__ t_max, Bvh b, Consts k, int n,
-                           bool* __restrict__ hit_out) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    float t_best = t_max[i];
-    int ref_best = -1;
-    if (t_best > 0.0f) {
-        const Ray r = curry::make_ray(o + 3 * (size_t)i, d + 3 * (size_t)i);
-        walk<true>(b, r, k, t_best, ref_best);
-    }
-    hit_out[i] = ref_best >= 0;
-}
-
 Prims make_prims(const void* refs, const void* tris16, const void* sph16, int n_tris) {
     return Prims{static_cast<const int*>(refs), static_cast<const float*>(tris16),
                  static_cast<const float*>(sph16), n_tris};
@@ -419,41 +357,4 @@ extern "C" int curry_bvh_any_hit(CURRY_BVH_LIVE_ARGS, void* hit_out, void* strea
                            t_scale, live, n_live);
     a.hit_out = static_cast<bool*>(hit_out);
     return launch_live<true>(a, static_cast<cudaStream_t>(stream));
-}
-
-// The first design, kept as the A/B baseline (no render path launches it).
-#define CURRY_BVH_ARGS                                                                         \
-    const void *o, const void *d, const void *t_max, const void *bmin, const void *bmax,       \
-        const void *hit, const void *miss, const void *first, const void *count,               \
-        const void *refs, const void *tris16, const void *sph16, int n, int n_tris, float g2, \
-        float g3, float g5, float t_scale
-
-static Bvh make_bvh(const void* bmin, const void* bmax, const void* hit, const void* miss,
-                    const void* first, const void* count, const void* refs, const void* tris16,
-                    const void* sph16, int n_tris) {
-    return Bvh{static_cast<const float*>(bmin), static_cast<const float*>(bmax),
-               static_cast<const int*>(hit),    static_cast<const int*>(miss),
-               static_cast<const int*>(first),  static_cast<const int*>(count),
-               make_prims(refs, tris16, sph16, n_tris)};
-}
-
-extern "C" int curry_bvh_closest_hit_per_thread(CURRY_BVH_ARGS, void* t_out, void* ref_out,
-                                                void* stream) {
-    const int blocks = (n + THREADS - 1) / THREADS;
-    closest_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(o), static_cast<const float*>(d),
-        static_cast<const float*>(t_max),
-        make_bvh(bmin, bmax, hit, miss, first, count, refs, tris16, sph16, n_tris),
-        Consts{g2, g3, g5, t_scale}, n, static_cast<float*>(t_out), static_cast<int*>(ref_out));
-    return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int curry_bvh_any_hit_per_thread(CURRY_BVH_ARGS, void* hit_out, void* stream) {
-    const int blocks = (n + THREADS - 1) / THREADS;
-    any_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(o), static_cast<const float*>(d),
-        static_cast<const float*>(t_max),
-        make_bvh(bmin, bmax, hit, miss, first, count, refs, tris16, sph16, n_tris),
-        Consts{g2, g3, g5, t_scale}, n, static_cast<bool*>(hit_out));
-    return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,26 @@
-// Per-ray device code shared by the traversal kernels (intersect.cu): ray
-// setup, the widened slab test, the watertight ray-triangle test and the
+// Per-ray device code shared by the traversal kernels (intersect_small.cu,
+// intersect_warp.cu, intersect_group.cu, bvh_walk.cu): ray setup, the
+// widened slab test, the watertight ray-triangle test and the
 // stable-quadratic ray-sphere test.
+//
+// The table walks replace the TPU kernels tri_closest_hit_tables /
+// tri_any_hit_tables of curry_pbrt_tpu/ops/pallas/intersect_kernel.py and
+// sphere_closest_hit_tables / sphere_any_hit_tables of
+// curry_pbrt_tpu/ops/pallas/sphere_kernel.py. Same tables, same rules:
+//   - primitives in kd order, `block` rows per cluster, clusters in
+//     front-to-back order, SUPER_G clusters per super-cluster, and
+//     clusters_per_slab clusters per slab; each level carries an AABB, and
+//     the AABB of an empty cluster is NaN;
+//   - per ray, a front-to-back walk: slab (only when there are several),
+//     super (when use_supers), cluster, each gated by the widened slab test
+//     against the ray's current best t;
+//   - per entered cluster, every row is tested against the best t FROZEN at
+//     the start of the cluster, the tile's smallest t wins (lowest row on an
+//     exact tie), and it is accepted on strict improvement — or, for the
+//     first hit, at exactly t_max. This per-cluster rule, not a per-primitive
+//     one, is what makes the result bit-equal to the TPU kernel's tiles and
+//     to the plain PyTorch versions (ops/kernels/intersect_kernel.py
+//     _closest_plain / _any_plain).
 //
 // Every expression below is written in the operation order of the plain
 // PyTorch versions (ops/kernels/intersect_kernel.py, ops/intersect.py
@@ -119,8 +139,8 @@ __device__ __forceinline__ float box_near(const float* box, const Ray& r, float 
 // where there is no hit. 84 f32 operations (add, sub, mul, div, abs, min,
 // max; comparisons and selects not counted) on a valid row.
 //
-// Template arguments, for callers whose lanes share one ray (the warp walk,
-// intersect_warp.cu); the defaults are the per-thread test:
+// Template arguments (the defaults are the plain test, as the BVH walk's
+// leaves use it):
 //   KZ >= 0: the ray's dominant axis, known at compile time (r.kz == KZ), so
 //     the permutation costs no selects;
 //   FAST_MAX: fmaxf instead of nan_max in the error bounds. The result is the
@@ -219,9 +239,8 @@ __device__ __forceinline__ float sphere_test(const float* s, const Ray& r, float
     return ok ? t : FLT_MAX;
 }
 
-// The primitive tests as types, so one templated walk serves both. test() is
-// the per-thread walk's (intersect.cu: each row read where it lies). The
-// warp walk (intersect_warp.cu), whose lanes share one ray, uses the rest:
+// The primitive tests as types, so one templated walk (the warp walk,
+// intersect_warp.cu, whose lanes share one ray) serves both:
 //   COLS, load(): the used columns of one 64-byte-aligned row, as 16- and
 //     8-byte loads, into registers;
 //   BY_AXIS, test_kz<KZ>(): the test on loaded columns; with BY_AXIS the
@@ -237,10 +256,6 @@ struct TriPrim {
     static constexpr int COLS = 10;  // p0 xyz, p1 xyz, p2 xyz, valid
     static constexpr bool BY_AXIS = true;
     static constexpr bool NEG_ZERO = false;
-    __device__ __forceinline__ static float test(const float* row, const Ray& r, float t_best,
-                                                 const Consts& k) {
-        return tri_test(row, r, t_best, k);
-    }
     __device__ __forceinline__ static void load(const float* row, float* p) {
         const float4 a = __ldg(reinterpret_cast<const float4*>(row));
         const float4 b = __ldg(reinterpret_cast<const float4*>(row) + 1);
@@ -274,10 +289,6 @@ struct SpherePrim {
     static constexpr int COLS = 14;  // w2o rows, translation, radius, valid
     static constexpr bool BY_AXIS = false;
     static constexpr bool NEG_ZERO = true;
-    __device__ __forceinline__ static float test(const float* row, const Ray& r, float t_best,
-                                                 const Consts& k) {
-        return sphere_test(row, r, t_best, k);
-    }
     __device__ __forceinline__ static void load(const float* row, float* p) {
         const float4 a = __ldg(reinterpret_cast<const float4*>(row));
         const float4 b = __ldg(reinterpret_cast<const float4*>(row) + 1);

@@ -5,12 +5,12 @@
 // Replaces the TPU kernels tri_closest_hit_groups / tri_any_hit_groups of
 // curry_pbrt_tpu/ops/pallas/intersect_group.py (kernel bodies
 // _make_group_closest_kernel and _make_group_any_kernel, with _box8 and
-// _tile8). It computes what K1 / K2 compute (intersect.cu) on the same
-// TriTables — the same slab → super → cluster walk in table order, the same
-// widened box test, the same per-cluster acceptance rule — and its results
-// are those of the plain versions (ops/kernels/intersect_group.py), which
-// keep the TPU kernel's group rule: a ray tests a cluster as soon as one ray
-// of its group enters the cluster's box.
+// _tile8). It computes what K1 / K2 compute (intersect.cuh's rules) on the
+// same TriTables — the same slab → super → cluster walk in table order, the
+// same widened box test, the same per-cluster acceptance rule — and its
+// results are those of the plain versions (ops/kernels/intersect_group.py),
+// which keep the TPU kernel's group rule: a ray tests a cluster as soon as
+// one ray of its group enters the cluster's box.
 //
 // The walk: lanes 0-7 test the slab, super and cluster boxes for their own
 // ray against its bound at that moment (dead lanes carry 0 and never enter;
@@ -79,12 +79,11 @@
 // super box per SUPER_G clusters (the TPU kernel swept clusters_per_slab //
 // SUPER_G supers without that guard).
 //
-// The baseline (closest_group_rule_kernel / any_group_rule_kernel, the
-// *_group_rule entry points) is the first port of the TPU kernel: every live ray
-// of the group tests every visited cluster (the group rule itself), rows
-// re-read for each, rays read from shared memory in every test, and a
-// butterfly of 5 levels × 2 shuffles for each of the 8 rays of every visited
-// cluster. It stays as the A/B baseline.
+// The first port of the TPU kernel, retired since, tested every live ray of
+// the group against every visited cluster (the group rule itself), rows
+// re-read for each, with a butterfly of 5 levels × 2 shuffles for each of
+// the 8 rays of every visited cluster; this design measured 4.3x faster at
+// a mesh bounce (PERF.md).
 //
 // What bounds it on an H100: FP32 ALU work, as for K1 — 84 operations per
 // (ray, triangle) test — and the box votes, which only lanes 0-7 do.
@@ -134,12 +133,11 @@ __device__ __forceinline__ float load_group(const float* o, const float* d, cons
 // The slab → super → cluster walk of one group: visit(c, gate) for every
 // cluster, in table order, whose slab, super and own box at least one ray of
 // the group enters (box_enter), each ray testing against bound(), its bound
-// at that moment (0 on lanes >= GROUP). With GATE, `gate` has bit q set when
-// ray q's own non-strict test of the cluster's box, with GATE_SLACK, passes
-// (see the header);
-// without it, 0. With one slab the slab box is not tested; a group with no
-// live ray skips the sweep. A visit that returns true ends the walk.
-template <bool GATE, class Bound, class Visit>
+// at that moment (0 on lanes >= GROUP); `gate` has bit q set when ray q's
+// own non-strict test of the cluster's box, with GATE_SLACK, passes (see the
+// header). With one slab the slab box is not tested; a group with no live ray
+// skips the sweep. A visit that returns true ends the walk.
+template <class Bound, class Visit>
 __device__ __forceinline__ void group_walk(const Tables& tb, const Ray& r, const Consts& k,
                                            int lane, Bound bound, Visit visit) {
     const int cps = tb.clusters_per_slab;
@@ -158,16 +156,12 @@ __device__ __forceinline__ void group_walk(const Tables& tb, const Ray& r, const
             for (int c_off = 0; c_off < SUPER_G; ++c_off) {
                 const int c = j * cps + s * SUPER_G + c_off;
                 const float* box = tb.caabb + (size_t)c * BOX_COLS;
-                unsigned gate = 0u;
-                if constexpr (GATE) {
-                    const float b = bound();
-                    // box_enter(box, r, b) == tn < b && b > 0 (intersect.cuh)
-                    const float tn = mine ? box_near(box, r, k.t_scale) : __int_as_float(0x7fc00000);
-                    if (!vote(tn < b && b > 0.0f)) continue;
-                    gate = __ballot_sync(FULL, (tn <= b * GATE_SLACK || isinf(b)) && b > 0.0f);
-                } else {
-                    if (!vote(mine && box_enter(box, r, bound(), k.t_scale))) continue;
-                }
+                const float b = bound();
+                // box_enter(box, r, b) == tn < b && b > 0 (intersect.cuh)
+                const float tn = mine ? box_near(box, r, k.t_scale) : __int_as_float(0x7fc00000);
+                if (!vote(tn < b && b > 0.0f)) continue;
+                const unsigned gate =
+                    __ballot_sync(FULL, (tn <= b * GATE_SLACK || isinf(b)) && b > 0.0f);
                 if (visit(c, gate)) return;
             }
         }
@@ -175,7 +169,7 @@ __device__ __forceinline__ void group_walk(const Tables& tb, const Ray& r, const
 }
 
 // ---------------------------------------------------------------------------
-// the kernels: the gated rays of a group over rows held in registers
+// the gated rays of a group over rows held in registers
 
 // Rows base + lane + 32 j (j < HELD) of one cluster into registers; a row at
 // or past `block` is marked padding (valid column -1: the test misses).
@@ -244,7 +238,7 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK * WARP)
     float t_best = load_group(o, d, t_max, n, g, lane, rays);
     const Ray r = rays[lane % GROUP];
     int idx = -1;
-    group_walk<true>(tb, r, k, lane, [&] { return t_best; }, [&](int c, unsigned gate) {
+    group_walk(tb, r, k, lane, [&] { return t_best; }, [&](int c, unsigned gate) {
         const float* rows = tb.prims + (size_t)c * tb.block * PRIM_COLS;
         float tile_t = FLT_MAX;  // on lane q: ray q's tile minimum
         int tile_row = 0;
@@ -295,7 +289,7 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK * WARP)
     const float tm = load_group(o, d, t_max, n, g, lane, rays);
     const Ray r = rays[lane % GROUP];
     bool hit = false;
-    group_walk<true>(tb, r, k, lane, [&] { return hit ? 0.0f : tm; }, [&](int c, unsigned gate) {
+    group_walk(tb, r, k, lane, [&] { return hit ? 0.0f : tm; }, [&](int c, unsigned gate) {
         const float* rows = tb.prims + (size_t)c * tb.block * PRIM_COLS;
         // no chunk once every gated ray has hit (80 registers and a 12-byte
         // spill; without this stop 90 registers, no spill, and 4% slower)
@@ -314,132 +308,6 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK * WARP)
                 }
             }
         }
-        return !vote(lane < GROUP && !hit && tm > 0.0f);  // no live ray left
-    });
-    const int i = g * GROUP + lane;
-    if (lane < GROUP && i < n) hit_out[i] = hit;
-}
-
-// ---------------------------------------------------------------------------
-// the baseline: every live ray of the group tests every visited cluster
-
-// Loads the triangle test's columns of one tris16 row into registers.
-__device__ __forceinline__ void load_row(const float* row, float* tri) {
-#pragma unroll
-    for (int m = 0; m < TRI_USED; ++m) tri[m] = row[m];
-}
-
-// One entered cluster of the closest-hit walk: every live ray of the group
-// tests every row against its best t frozen at the cluster's start; lane
-// r < GROUP then updates ray r's (t_best, idx).
-__device__ __forceinline__ void closest_tile(const Tables& tb, int c, const Ray* rays,
-                                             const Consts& k, int lane, float& t_best,
-                                             int& idx) {
-    float frozen[GROUP], bt[GROUP];
-    int br[GROUP];
-#pragma unroll
-    for (int q = 0; q < GROUP; ++q) {
-        frozen[q] = __shfl_sync(FULL, t_best, q);
-        bt[q] = FLT_MAX;
-        br[q] = 0;
-    }
-    const float* rows = tb.prims + (size_t)c * tb.block * PRIM_COLS;
-    for (int i = lane; i < tb.block; i += WARP) {
-        float tri[TRI_USED];
-        load_row(rows + (size_t)i * PRIM_COLS, tri);
-#pragma unroll
-        for (int q = 0; q < GROUP; ++q) {
-            if (!(frozen[q] > 0.0f)) continue;  // a dead ray never hits (warp-uniform)
-            const float t = TriPrim::test(tri, rays[q], frozen[q], k);
-            if (t < bt[q]) {  // rows ascend per lane: the lane's lowest row wins a tie
-                bt[q] = t;
-                br[q] = i;
-            }
-        }
-    }
-    float my_t = FLT_MAX;
-    int my_row = 0;
-#pragma unroll
-    for (int q = 0; q < GROUP; ++q) {
-#pragma unroll
-        for (int off = WARP / 2; off > 0; off >>= 1) {
-            const float ot = __shfl_xor_sync(FULL, bt[q], off);
-            const int orow = __shfl_xor_sync(FULL, br[q], off);
-            if (ot < bt[q] || (ot == bt[q] && orow < br[q])) {
-                bt[q] = ot;
-                br[q] = orow;
-            }
-        }
-        if (lane == q) {
-            my_t = bt[q];
-            my_row = br[q];
-        }
-    }
-    if (lane < GROUP) {
-        const bool better =
-            (my_t < t_best) || ((my_t == t_best) && (idx < 0) && (my_t < FLT_MAX));
-        if (better) {
-            t_best = my_t;
-            idx = c * tb.block + my_row;
-        }
-    }
-}
-
-__global__ void closest_group_rule_kernel(const float* __restrict__ o,
-                                           const float* __restrict__ d,
-                                           const float* __restrict__ t_max, Tables tb, Consts k,
-                                           int n, float* __restrict__ t_out,
-                                           int* __restrict__ row_out) {
-    __shared__ Ray rays_s[WARPS_PER_BLOCK][GROUP];
-    const int lane = threadIdx.x % WARP;
-    const int w = threadIdx.x / WARP;
-    const int g = blockIdx.x * WARPS_PER_BLOCK + w;
-    if (g * GROUP >= n) return;  // the whole warp: g is warp-uniform
-    Ray* rays = rays_s[w];
-    float t_best = load_group(o, d, t_max, n, g, lane, rays);
-    const Ray r = rays[lane % GROUP];
-    int idx = -1;
-    group_walk<false>(tb, r, k, lane, [&] { return t_best; }, [&](int c, unsigned) {
-        closest_tile(tb, c, rays, k, lane, t_best, idx);
-        return false;
-    });
-    const int i = g * GROUP + lane;
-    if (lane < GROUP && i < n) {
-        t_out[i] = idx >= 0 ? t_best : FLT_MAX;
-        row_out[i] = idx;
-    }
-}
-
-__global__ void any_group_rule_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                                       const float* __restrict__ t_max, Tables tb, Consts k,
-                                       int n, bool* __restrict__ hit_out) {
-    __shared__ Ray rays_s[WARPS_PER_BLOCK][GROUP];
-    const int lane = threadIdx.x % WARP;
-    const int w = threadIdx.x / WARP;
-    const int g = blockIdx.x * WARPS_PER_BLOCK + w;
-    if (g * GROUP >= n) return;
-    Ray* rays = rays_s[w];
-    const float tm = load_group(o, d, t_max, n, g, lane, rays);
-    const Ray r = rays[lane % GROUP];
-    float tq[GROUP];  // every ray's t_max, on every lane
-#pragma unroll
-    for (int q = 0; q < GROUP; ++q) tq[q] = __shfl_sync(FULL, tm, q);
-    bool hit = false;
-    group_walk<false>(tb, r, k, lane, [&] { return hit ? 0.0f : tm; }, [&](int c, unsigned) {
-        // the rays still to test: live and not yet hit (warp-uniform)
-        const unsigned todo = __ballot_sync(FULL, lane < GROUP && !hit && tm > 0.0f);
-        const float* rows = tb.prims + (size_t)c * tb.block * PRIM_COLS;
-        unsigned bits = 0u;
-        for (int i = lane; i < tb.block; i += WARP) {
-            float tri[TRI_USED];
-            load_row(rows + (size_t)i * PRIM_COLS, tri);
-#pragma unroll
-            for (int q = 0; q < GROUP; ++q)
-                if (((todo >> q) & 1u) && TriPrim::test(tri, rays[q], tq[q], k) < FLT_MAX)
-                    bits |= 1u << q;
-        }
-        bits = __reduce_or_sync(FULL, bits);
-        if (lane < GROUP && ((bits >> lane) & 1u)) hit = true;
         return !vote(lane < GROUP && !hit && tm > 0.0f);  // no live ray left
     });
     const int i = g * GROUP + lane;
@@ -465,8 +333,7 @@ int launch(Kernel kernel, const void* o, const void* d, const void* t_max, const
 
 // The C interface (CURRY_TABLE_ARGS, intersect.cuh). The walk always has the
 // super level, so `use_supers` is not read; tables whose clusters_per_slab
-// is not a multiple of SUPER_G are refused with cudaErrorInvalidValue. The
-// *_group_rule entry points launch the baseline.
+// is not a multiple of SUPER_G are refused with cudaErrorInvalidValue.
 
 #define CURRY_GROUP_GUARD \
     if (clusters_per_slab % curry::SUPER_G != 0) return static_cast<int>(cudaErrorInvalidValue)
@@ -481,18 +348,5 @@ extern "C" int curry_tri_closest_hit_groups(CURRY_TABLE_ARGS, void* t_out, void*
 extern "C" int curry_tri_any_hit_groups(CURRY_TABLE_ARGS, void* hit_out, void* stream) {
     CURRY_GROUP_GUARD;
     return curry::launch(curry::any_group_kernel, o, d, t_max, CURRY_TABLES, n, stream,
-                         static_cast<bool*>(hit_out));
-}
-
-extern "C" int curry_tri_closest_hit_group_rule(CURRY_TABLE_ARGS, void* t_out, void* row_out,
-                                                  void* stream) {
-    CURRY_GROUP_GUARD;
-    return curry::launch(curry::closest_group_rule_kernel, o, d, t_max, CURRY_TABLES, n, stream,
-                         static_cast<float*>(t_out), static_cast<int*>(row_out));
-}
-
-extern "C" int curry_tri_any_hit_group_rule(CURRY_TABLE_ARGS, void* hit_out, void* stream) {
-    CURRY_GROUP_GUARD;
-    return curry::launch(curry::any_group_rule_kernel, o, d, t_max, CURRY_TABLES, n, stream,
                          static_cast<bool*>(hit_out));
 }

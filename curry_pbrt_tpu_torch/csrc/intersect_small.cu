@@ -9,19 +9,19 @@
 // Replaces the TPU kernels tri_closest_hit_tables / tri_any_hit_tables of
 // curry_pbrt_tpu/ops/pallas/intersect_kernel.py (:709 and :760; kernel bodies
 // _make_closest_kernel, with stats=True, and _make_any_kernel) on those
-// tables. It computes what the per-thread walk of intersect.cu computes, with
-// the same rules (intersect.cu:1-45): the clusters in table order, each gated
-// by the widened slab test against the ray's bound at that moment (the
-// dead-lane gate included; NaN boxes of empty clusters are never entered);
+// tables, with the same rules (intersect.cuh): the clusters in table order,
+// each gated by the widened slab test against the ray's bound at that moment
+// (the dead-lane gate included; NaN boxes of empty clusters are never entered);
 // every row of an entered cluster tested against the best t frozen at the
 // cluster's start; the tile's smallest t, lowest row on an exact tie,
 // accepted on strict improvement or, for the first hit, at exactly t_max. So
-// t is bit-equal to the plain version's and (t, row, entered, improved) equal
-// to the per-thread walk's: each ray makes the same tests in the same order.
+// t is bit-equal to the plain version's, rows equal up to exact-t ties and
+// (entered, improved) equal: each ray makes the plain version's tests in
+// its order.
 //
 // What bounds it on an H100: FP32 ALU work per entered tile (8 rows of the
 // 84-operation watertight test, built with -fmad=false, so no FMA). The
-// per-thread walk reached 14% (K1) and 10% (K2) of its bound at the
+// first port, a walk of one thread per ray (retired since), reached 14% (K1) and 10% (K2) of its bound at the
 // headline's 4,194,304-ray shape, held back by: the dominant axis as a run-
 // time value per thread (9 three-way selects a row, NaN-checking maxima in
 // the error bounds); warps whose rays enter different clusters running the
@@ -337,8 +337,8 @@ int launch(const void* o, const void* d, const void* t_max, const Tables& tb, co
 }  // namespace
 }  // namespace curry
 
-// The C interface (CURRY_TABLE_ARGS, intersect.cuh), as intersect.cu's
-// per-thread entry points; saabb and slab are not read (one slab, no supers).
+// The C interface (CURRY_TABLE_ARGS, intersect.cuh), as intersect_warp.cu's
+// entry points; saabb and slab are not read (one slab, no supers).
 
 // Closest hit; the stats instantiation (K1b) when entered_out and
 // improved_out are not null.

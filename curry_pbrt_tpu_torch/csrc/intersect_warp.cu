@@ -9,22 +9,21 @@
 // _make_closest_kernel, with stats=True, and _make_any_kernel) and
 // sphere_closest_hit_tables / sphere_any_hit_tables of
 // curry_pbrt_tpu/ops/pallas/sphere_kernel.py (:216 and :256; the same bodies
-// with tile_test=_sphere_tile_test). It computes what the per-thread walk of
-// intersect.cu computes, on the same tables, with the same rules
-// (intersect.cu:1-45): the slab → super → cluster walk in table order, each
+// with tile_test=_sphere_tile_test), on the same tables, with the same rules
+// (intersect.cuh): the slab → super → cluster walk in table order, each
 // box gated by the widened slab test against the ray's bound at that moment
 // (the dead-lane gate t_best > 0 included; NaN boxes of empty clusters are
 // never entered); every row of an entered cluster tested against the best t
 // frozen at the cluster's start; the tile's smallest t, lowest row on an
 // exact tie, accepted on strict improvement or, for the first hit, at
-// exactly t_max. So t is bit-equal to the plain version's and the per-thread
-// walk's, sign included, rows equal up to exact-t ties, stats equal.
+// exactly t_max. So t is bit-equal to the plain version's, sign included,
+// rows equal up to exact-t ties, stats equal.
 //
 // What bounds it on an H100: FP32 ALU work per entered tile (block rows of
 // the 84-operation watertight triangle test or the 73-operation sphere test,
 // built with -fmad=false, so no FMA) and the L2 traffic of the rows (every
-// table of the bench scenes fits the 50 MB L2). The per-thread walk reached
-// 37% of the card's f32 rate on coherent camera rays but 2.6-4.8% on
+// table of the bench scenes fits the 50 MB L2). The first port, a walk of
+// one thread per ray (retired since), reached 37% of the card's f32 rate on coherent camera rays but 2.6-4.8% on
 // incoherent bounce rays: one thread per ray, so a warp whose 32 rays enter
 // different clusters runs the union of their clusters one after another,
 // each lane reading its own 64-byte rows; and a warp with one live ray holds
@@ -99,8 +98,8 @@ __device__ __forceinline__ bool level(const float* boxes, int first, int count, 
 }
 
 // The slab → super → cluster walk of one ray by one warp: visit(c) for each
-// cluster the serial walk (intersect.cu, walk + the cluster's own box test)
-// enters, in the same order. With one slab the slab box is not tested.
+// cluster a serial walk of the ray (the plain version's _walk with the
+// cluster's own box test) enters, in the same order. With one slab the slab box is not tested.
 template <class Bound, class Visit>
 __device__ __forceinline__ void walk(const Tables& tb, const Ray& r, const Consts& k, int lane,
                                      Bound bound, Visit visit) {
@@ -161,10 +160,10 @@ __device__ __forceinline__ void scan_tile(const float* rows, int block, int lane
 // the floats do on the t > 0 of a hit and the FLT_MAX of a miss. Where the
 // test can return -0.0 (Prim::NEG_ZERO, spheres), whose raw bits would order
 // above FLT_MAX's, the key is the bits with the sign cleared — monotone on
-// t >= -0.0, and tying -0.0 with +0.0 as the per-thread walk's and the
-// plain version's comparisons do — and t, its sign included, comes from the
-// winner's own lane (row % 32). An all-miss tile gives (FLT_MAX, 0): lanes
-// without a hit keep row 0.
+// t >= -0.0, and tying -0.0 with +0.0 as the plain version's comparisons
+// do — and t, its sign included, comes from the winner's own lane
+// (row % 32). An all-miss tile gives (FLT_MAX, 0): lanes without a hit keep
+// row 0.
 template <class Prim>
 __device__ __forceinline__ void warp_min(float& bt, int& br) {
     const unsigned key = __float_as_uint(bt) & (Prim::NEG_ZERO ? 0x7fffffffu : ~0u);
@@ -298,8 +297,8 @@ int launch_any(const void* o, const void* d, const void* t_max, const Tables& tb
 }  // namespace
 }  // namespace curry
 
-// The C interface (CURRY_TABLE_ARGS, intersect.cuh), as intersect.cu's
-// per-thread entry points. n must be below 2^31 - 32.
+// The C interface (CURRY_TABLE_ARGS, intersect.cuh). n must be below
+// 2^31 - 32.
 
 // Closest hit over triangles; the stats instantiation (K1b) when
 // entered_out and improved_out are not null.

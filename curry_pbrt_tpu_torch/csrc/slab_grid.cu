@@ -26,9 +26,9 @@
 // The plain version (tools/probe_slab_grid.slab_grid_plain) adds in the same
 // order, so the two are bit-equal under -fmad=false.
 //
-// The first port, `slab_grid_baseline_kernel`, is kept as the A/B
-// baseline: one CTA per block of block_rays rays, each re-summing every slab
-// serially in n_slabs threads before a barrier, 4-byte loads and stores.
+// The first port, retired since, took one CTA per block of block_rays rays,
+// each re-summing every slab serially in n_slabs threads before a barrier,
+// with 4-byte loads and stores; this design measured 2.4x faster (PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -77,26 +77,6 @@ __global__ void __launch_bounds__(THREADS)
         }
         __stcs(o4 + q, acc);
     }
-}
-
-__global__ void slab_grid_baseline_kernel(const float* __restrict__ tab,
-                                          const float* __restrict__ rays,
-                                          const float* __restrict__ slabs, int n_slabs,
-                                          int slab_rows, int n, float* __restrict__ out) {
-    extern __shared__ float scaled_sum[];  // (n_slabs,): tab[8 j, 0] · Σ slab j
-    for (int j = threadIdx.x; j < n_slabs; j += blockDim.x) {
-        const float* sl = slabs + (size_t)j * slab_rows * 8;
-        float acc = 0.0f;
-        for (int e = 0; e < slab_rows * 8; ++e) acc += sl[e];
-        scaled_sum[j] = tab[(size_t)j * 8 * 4] * acc;
-    }
-    __syncthreads();
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const float ray = rays[i];
-    float acc = 0.0f;
-    for (int j = 0; j < n_slabs; ++j) acc += scaled_sum[j] + ray;
-    out[i] = acc;
 }
 
 // SMs × the CTAs of slab_grid_kernel that fit on one SM, cached per device
@@ -148,19 +128,6 @@ extern "C" int curry_slab_grid(const void* tab, const void* rays, const void* sl
     if (need < blocks) blocks = static_cast<int>(need);
     slab_grid_kernel<<<blocks, THREADS, (size_t)n_slabs * sizeof(float),
                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(tab), static_cast<const float*>(rays),
-        static_cast<const float*>(slabs), n_slabs, slab_rows, n, static_cast<float*>(out));
-    return static_cast<int>(cudaGetLastError());
-}
-
-// The baseline (the first port), the same interface: one CTA per block_rays rays.
-extern "C" int curry_slab_grid_baseline(const void* tab, const void* rays, const void* slabs,
-                                        int n_slabs, int slab_rows, int block_rays, int n,
-                                        void* out, void* stream) {
-    if (bad_shape(n_slabs, slab_rows, block_rays, n)) return static_cast<int>(cudaErrorInvalidValue);
-    if (n == 0) return static_cast<int>(cudaSuccess);
-    slab_grid_baseline_kernel<<<n / block_rays, block_rays, n_slabs * sizeof(float),
-                                static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(tab), static_cast<const float*>(rays),
         static_cast<const float*>(slabs), n_slabs, slab_rows, n, static_cast<float*>(out));
     return static_cast<int>(cudaGetLastError());

@@ -112,29 +112,15 @@ ENTRY_POINTS = {
     # intersect_small.cu, the same signatures
     "curry_tri_closest_hit_small": _TABLE_ARGS + [_P] * 5,
     "curry_tri_any_hit_small": _TABLE_ARGS + [_P] * 2,
-    # intersect.cu, the same signatures
-    "curry_tri_closest_hit_thread": _TABLE_ARGS + [_P] * 5,
-    "curry_tri_any_hit_thread": _TABLE_ARGS + [_P] * 2,
-    "curry_sphere_closest_hit_thread": _TABLE_ARGS + [_P] * 3,
-    "curry_sphere_any_hit_thread": _TABLE_ARGS + [_P] * 2,
-    # intersect_group.cu, the kernels and the baseline (_group_rule)
+    # intersect_group.cu: t_out, row_out / hit_out; stream
     "curry_tri_closest_hit_groups": _TABLE_ARGS + [_P] * 3,
     "curry_tri_any_hit_groups": _TABLE_ARGS + [_P] * 2,
-    "curry_tri_closest_hit_group_rule": _TABLE_ARGS + [_P] * 3,
-    "curry_tri_any_hit_group_rule": _TABLE_ARGS + [_P] * 2,
     # slab_grid.cu: tab, rays, slabs; n_slabs, slab_rows, block_rays, n; out, stream
     "curry_slab_grid": [_P] * 3 + [_I] * 4 + [_P] * 2,
-    "curry_slab_grid_baseline": [_P] * 3 + [_I] * 4 + [_P] * 2,  # the first port
-    # bvh_walk.cu, the live-ray walk: o, d, t_max, nodes, refs, tris16, sph16;
-    # n, n_tris; g2, g3, g5, t_scale; live, n_live; t_out, ref_out / hit_out;
-    # stream
+    # bvh_walk.cu: o, d, t_max, nodes, refs, tris16, sph16; n, n_tris; g2, g3,
+    # g5, t_scale; live, n_live; t_out, ref_out / hit_out; stream
     "curry_bvh_closest_hit": [_P] * 7 + [_I] * 2 + [_F] * 4 + [_P] * 5,
     "curry_bvh_any_hit": [_P] * 7 + [_I] * 2 + [_F] * 4 + [_P] * 4,
-    # bvh_walk.cu, the per-thread walk: o, d, t_max, bmin, bmax, hit, miss,
-    # first, count, refs, tris16, sph16; n, n_tris; g2, g3, g5, t_scale;
-    # t_out, ref_out / hit_out; stream
-    "curry_bvh_closest_hit_per_thread": [_P] * 12 + [_I] * 2 + [_F] * 4 + [_P] * 3,
-    "curry_bvh_any_hit_per_thread": [_P] * 12 + [_I] * 2 + [_F] * 4 + [_P] * 2,
     # texel_grad.cu: ids, perm, grad; n, n_texels; out, carry_ids, carry_vals;
     # carry_rows; stream
     "curry_texel_grad": [_P] * 3 + [_I] * 2 + [_P] * 3 + [_I, _P],

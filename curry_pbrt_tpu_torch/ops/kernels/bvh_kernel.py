@@ -11,16 +11,12 @@ grid sized to the card (128 threads a block, all the blocks that fit).
 Inputs are made contiguous and 16-byte aligned (a misaligned view is
 copied); outputs are fresh allocations. The wrapper allocates the list and
 its counter and never reads them: no host sync.
-bvh_closest_per_thread / bvh_any_per_thread launch the first design (one
-thread per lane over the six node arrays), kept as the A/B baseline of
-chip_smoke.py; no render path calls them.
 
 The kernels have no TPU counterpart: the JAX package's bvh_traverse
 (curry_pbrt_tpu/ops/bvh.py:298) is a jnp while_loop, which the port as
 eager PyTorch would run as hundreds of launches and one host-checked
 `any(ptr >= 0)` per step. Launches are counted in
-intersect_kernel.LAUNCHES: bvh_closest, bvh_any and, for the baseline,
-bvh_closest_thread, bvh_any_thread.
+intersect_kernel.LAUNCHES: bvh_closest, bvh_any.
 
 make_bvh_intersectors builds the renderer's intersector trio (render.py's
 intersector="bvh") on bvh_closest / bvh_any.
@@ -103,18 +99,6 @@ def _launch_live(entry: str, counter: str, bvh: DeviceBVH, o, d, t_max, outs) ->
     LAUNCHES[counter] += 1
 
 
-def _launch_per_thread(entry: str, counter: str, bvh: DeviceBVH, o, d, t_max, outs) -> None:
-    """Launch the per-thread walk (the A/B baseline) on CUDA tensors;
-    counts the launch."""
-    n = o.shape[0]
-    if n == 0:
-        return
-    keep = [_aligned(x) for x in (o, d, t_max) + tuple(bvh[:9])]
-    args = [x.data_ptr() for x in keep] + [n, bvh.n_tris] + _CONSTS
-    _call(entry, o, args + [x.data_ptr() for x in outs])
-    LAUNCHES[counter] += 1
-
-
 def _closest_outputs(t_max):
     return torch.empty_like(t_max), torch.empty(t_max.shape, dtype=torch.int32,
                                                 device=t_max.device)
@@ -140,28 +124,6 @@ def bvh_any(bvh: DeviceBVH, o, d, t_max):
         return bvh_traverse(bvh, o, d, t_max, any_hit=True)[1] >= 0
     hit = torch.empty(t_max.shape, dtype=torch.bool, device=o.device)
     _launch_live("curry_bvh_any_hit", "bvh_any", bvh, o, d, t_max, [hit])
-    return hit
-
-
-def bvh_closest_per_thread(bvh: DeviceBVH, o, d, t_max):
-    """bvh_closest through the first design (one thread per lane over the
-    six node arrays), the A/B baseline."""
-    _check(bvh, o, d, t_max)
-    if o.device.type == "cpu":
-        return bvh_traverse(bvh, o, d, t_max)
-    t, ref = _closest_outputs(t_max)
-    _launch_per_thread("curry_bvh_closest_hit_per_thread", "bvh_closest_thread", bvh, o, d,
-                       t_max, [t, ref])
-    return t, ref
-
-
-def bvh_any_per_thread(bvh: DeviceBVH, o, d, t_max):
-    """bvh_any through the first design, the A/B baseline."""
-    _check(bvh, o, d, t_max)
-    if o.device.type == "cpu":
-        return bvh_traverse(bvh, o, d, t_max, any_hit=True)[1] >= 0
-    hit = torch.empty(t_max.shape, dtype=torch.bool, device=o.device)
-    _launch_per_thread("curry_bvh_any_hit_per_thread", "bvh_any_thread", bvh, o, d, t_max, [hit])
     return hit
 
 

@@ -38,12 +38,10 @@ the TPU kernel lacks. The JAX probe builds its tables at block_t 128,
 clusters_per_slab 128, use_supers=True (`group_tables`).
 
 For CPU tensors the wrappers run the plain versions (the group rule); for
-CUDA tensors they launch the kernels or raise. `tri_closest_hit_group_rule`
-/ `tri_any_hit_group_rule` launch the first port's kernels, which test
-every live ray of the group (the group rule itself): the A/B baseline. With
-stats=True the plain versions also count, per ray, the tiles it tested —
-under the group rule the tiles its group tested (the G = 8 work of
-tools/probe_granularity.py); with gate=True those the gate lets it test.
+CUDA tensors they launch the kernels or raise. With stats=True the plain
+versions also count, per ray, the tiles it tested — under the group rule
+the tiles its group tested (the G = 8 work of tools/probe_granularity.py);
+with gate=True those the gate lets it test.
 """
 
 from __future__ import annotations
@@ -141,58 +139,37 @@ def tri_any_hit_groups_plain(o, d, t_max, tris16, caabb, saabb, slab_aabb, *,
     return tuple(x[:n] for x in out) if stats else out[:n]
 
 
-def _closest(entry, counter, o, d, t_max, tris16, caabb, saabb, slab_aabb, block_t, cps):
-    args = (o, d, t_max, tris16, caabb, saabb, slab_aabb)
-    _check_groups(*args, block_t, cps)
-    if o.device.type == "cpu":
-        return tri_closest_hit_groups_plain(*args, block_t=block_t, clusters_per_slab=cps)
-    n, dev = o.shape[0], o.device
-    outs = [torch.empty((n,), dtype=torch.float32, device=dev),
-            torch.empty((n,), dtype=torch.int32, device=dev)]
-    _launch(entry, counter, outs, *args, block_t, cps, True)
-    return tuple(outs)
-
-
-def _any(entry, counter, o, d, t_max, tris16, caabb, saabb, slab_aabb, block_t, cps):
-    args = (o, d, t_max, tris16, caabb, saabb, slab_aabb)
-    _check_groups(*args, block_t, cps)
-    if o.device.type == "cpu":
-        return tri_any_hit_groups_plain(*args, block_t=block_t, clusters_per_slab=cps)
-    hit = torch.empty((o.shape[0],), dtype=torch.bool, device=o.device)
-    _launch(entry, counter, [hit], *args, block_t, cps, True)
-    return hit
-
-
 def tri_closest_hit_groups(o, d, t_max, tris16, caabb, saabb, slab_aabb, *,
                            block_t: int, clusters_per_slab: int):
     """Group-granular closest hit over TriTables tensors (supers required).
     Returns (t (N,) f32, FLOAT_MAX on miss; row (N,) int32 table row, -1 on
     miss). CPU tensors → plain version; CUDA tensors → the CUDA kernel."""
-    return _closest("curry_tri_closest_hit_groups", "tri_closest_group", o, d, t_max, tris16,
-                    caabb, saabb, slab_aabb, block_t, clusters_per_slab)
+    args = (o, d, t_max, tris16, caabb, saabb, slab_aabb)
+    _check_groups(*args, block_t, clusters_per_slab)
+    if o.device.type == "cpu":
+        return tri_closest_hit_groups_plain(*args, block_t=block_t,
+                                            clusters_per_slab=clusters_per_slab)
+    n, dev = o.shape[0], o.device
+    outs = [torch.empty((n,), dtype=torch.float32, device=dev),
+            torch.empty((n,), dtype=torch.int32, device=dev)]
+    _launch("curry_tri_closest_hit_groups", "tri_closest_group", outs, *args, block_t,
+            clusters_per_slab, True)
+    return tuple(outs)
 
 
 def tri_any_hit_groups(o, d, t_max, tris16, caabb, saabb, slab_aabb, *,
                        block_t: int, clusters_per_slab: int):
     """Group-granular any hit (shadow test) → (N,) bool. CPU tensors →
     plain version; CUDA tensors → the CUDA kernel."""
-    return _any("curry_tri_any_hit_groups", "tri_any_group", o, d, t_max, tris16, caabb, saabb,
-                slab_aabb, block_t, clusters_per_slab)
-
-
-def tri_closest_hit_group_rule(o, d, t_max, tris16, caabb, saabb, slab_aabb, *,
-                                 block_t: int, clusters_per_slab: int):
-    """tri_closest_hit_groups through the baseline kernel, the group rule
-    itself: every live ray of the group tests every visited cluster."""
-    return _closest("curry_tri_closest_hit_group_rule", "tri_closest_group_rule", o, d, t_max,
-                    tris16, caabb, saabb, slab_aabb, block_t, clusters_per_slab)
-
-
-def tri_any_hit_group_rule(o, d, t_max, tris16, caabb, saabb, slab_aabb, *,
-                             block_t: int, clusters_per_slab: int):
-    """tri_any_hit_groups through the baseline kernel."""
-    return _any("curry_tri_any_hit_group_rule", "tri_any_group_rule", o, d, t_max, tris16,
-                caabb, saabb, slab_aabb, block_t, clusters_per_slab)
+    args = (o, d, t_max, tris16, caabb, saabb, slab_aabb)
+    _check_groups(*args, block_t, clusters_per_slab)
+    if o.device.type == "cpu":
+        return tri_any_hit_groups_plain(*args, block_t=block_t,
+                                        clusters_per_slab=clusters_per_slab)
+    hit = torch.empty((o.shape[0],), dtype=torch.bool, device=o.device)
+    _launch("curry_tri_any_hit_groups", "tri_any_group", [hit], *args, block_t,
+            clusters_per_slab, True)
+    return hit
 
 
 def group_kw(tables) -> dict:

@@ -1,7 +1,7 @@
 """Closest-hit (K1) and any-hit (K2) triangle traversal over cluster tables:
 the host table construction, the wrappers of the CUDA kernels in
-csrc/intersect_small.cu, csrc/intersect_warp.cu and csrc/intersect.cu, their
-launch plan, and their plain PyTorch versions.
+csrc/intersect_small.cu and csrc/intersect_warp.cu, their launch plan, and
+their plain PyTorch versions.
 
 Counterpart of the JAX package's ops/pallas/intersect_kernel.py. The host
 table functions are copied as they are, so both packages build identical tables:
@@ -18,16 +18,15 @@ table functions are copied as they are, so both packages build identical tables:
 tables. For tensors on the CPU they run the plain versions; for CUDA tensors
 they launch the kernel `launch_plan` picks from block_t, and
 raise if it cannot run — there is no fallback from the card to the plain
-code: for tables of at most PER_THREAD_MAX_BLOCK_T rows a cluster (the
+code: for tables of at most SMALL_MAX_BLOCK_T rows a cluster (the
 small-scene plan's tables: the Cornell scenes) the small-table walk of
 csrc/intersect_small.cu (the table in shared memory, one thread per live
 ray, the live rays binned by dominant axis), which refuses tables it cannot
 stage (more than one slab, supers, more than SMALL_TABLE_MAX_BYTES);
 beyond, the warp-cooperative walk of csrc/intersect_warp.cu (the 32 lanes
 of a warp on one ray, lanes on a cluster's rows, live rays only).
-`tri_closest_hit_small` / `tri_closest_hit_warp` / `tri_closest_hit_thread`
-(and the any-hit trio) force one walk, for the A/B of chip_smoke.py and the
-tools; the per-thread walk of csrc/intersect.cu is the baseline of both.
+`tri_closest_hit_small` / `tri_closest_hit_warp` (and the any-hit pair)
+force one walk, for the A/B of chip_smoke.py and the tools.
 `LAUNCHES` counts kernel launches per kernel, those of the sphere kernels
 (sphere_kernel.py), the group kernels (intersect_group.py), the BVH walk
 (bvh_kernel.py), the slab-grid probe (tools/probe_slab_grid.py), the
@@ -66,33 +65,30 @@ USE_SUPERS_MIN = 96  # enable the super-cluster level beyond this many clusters
 
 # Kernel launches per wrapper since the last reset (plain-version calls on
 # CPU tensors are not launches and are not counted). tri_* / sphere_*: the
-# warp walk; tri_*_small: the small-table walk; bvh_*: the live-ray BVH
-# walk; *_thread: the per-thread walks; texel_grad: a texel gather's
+# warp walk; tri_*_small: the small-table walk; tri_*_group: the group
+# kernel K4; bvh_*: the live-ray BVH walk; texel_grad: a texel gather's
 # backward (its sort and segment-sum launches); nee_sample / nee_finish:
 # the two halves of next-event estimation (nee.py), one each a call.
 LAUNCHES = {"tri_closest": 0, "tri_closest_stats": 0, "tri_any": 0,
             "tri_closest_small": 0, "tri_closest_stats_small": 0, "tri_any_small": 0,
-            "tri_closest_thread": 0, "tri_closest_stats_thread": 0, "tri_any_thread": 0,
-            "sphere_closest": 0, "sphere_any": 0, "sphere_closest_thread": 0,
-            "sphere_any_thread": 0,
-            "tri_closest_group": 0, "tri_any_group": 0, "tri_closest_group_rule": 0,
-            "tri_any_group_rule": 0, "slab_grid": 0, "slab_grid_baseline": 0,
-            "bvh_closest": 0, "bvh_any": 0, "bvh_closest_thread": 0, "bvh_any_thread": 0,
+            "sphere_closest": 0, "sphere_any": 0,
+            "tri_closest_group": 0, "tri_any_group": 0, "slab_grid": 0,
+            "bvh_closest": 0, "bvh_any": 0,
             "texel_grad": 0, "nee_sample": 0, "nee_finish": 0}
 
 WARP = 32
-# Tables of up to this many rows a cluster take the small-table walk: over
-# the K1 / K2 calls of a headline pass it measured 0.51x / 0.42x the
-# per-thread walk's time, where the warp walk, 24 of its 32 lanes idle on
-# 8-row clusters, measured 3.4x / 2.2x it (chip_smoke.py phases 3 and 7,
-# PERF.md).
-PER_THREAD_MAX_BLOCK_T = 8
+# Triangle tables of up to this many rows a cluster take the small-table
+# walk: over the K1 / K2 calls of a headline pass it measured 0.51x / 0.42x
+# the time of a walk of one thread per ray (retired since), where the warp
+# walk, 24 of its 32 lanes idle on 8-row clusters, measured 3.4x / 2.2x it
+# (chip_smoke.py phases 3 and 7, PERF.md).
+SMALL_MAX_BLOCK_T = 8
 # What the small-table walk stages in shared memory: 48 bytes a row (its 10
 # used columns, 16-byte aligned) and 32 a cluster box, at most this many
 # bytes (csrc/intersect_small.cu MAX_TABLE_BYTES) — 98 clusters of 8 rows.
 SMALL_ROW_BYTES, SMALL_BOX_BYTES = 48, 32
 SMALL_TABLE_MAX_BYTES = 40 * 1024
-WALK_SUFFIX = {"warp": "", "small": "_small", "thread": "_thread"}  # LAUNCHES keys
+WALK_SUFFIX = {"warp": "", "small": "_small"}  # LAUNCHES keys
 
 
 def reset_launches() -> None:
@@ -513,12 +509,10 @@ def _check(o, d, t_max, prims, caabb, saabb, slab_aabb, block, cps, use_supers):
 def launch_plan(block_t: int, spheres: bool = False) -> str:
     """The walk tri_closest_hit_tables / tri_any_hit_tables (and, with
     spheres, the sphere wrappers, from block_s) launch for tables of block_t
-    rows a cluster: "warp" (csrc/intersect_warp.cu) beyond
-    PER_THREAD_MAX_BLOCK_T; up to it "small" (csrc/intersect_small.cu), which
-    has no sphere test, so sphere tables take "thread" (csrc/intersect.cu)."""
-    if block_t > PER_THREAD_MAX_BLOCK_T:
-        return "warp"
-    return "thread" if spheres else "small"
+    rows a cluster: "small" (csrc/intersect_small.cu) for triangle tables of
+    up to SMALL_MAX_BLOCK_T rows, else "warp" (csrc/intersect_warp.cu), the
+    one walk with a sphere test."""
+    return "small" if block_t <= SMALL_MAX_BLOCK_T and not spheres else "warp"
 
 
 def small_table_bytes(n_clusters: int, block_t: int) -> int:
@@ -539,9 +533,9 @@ def _choose_walk(walk, o, caabb, slab_aabb, block, use_supers) -> str:
 def _check_small(caabb, slab_aabb, block, use_supers):
     """Raise for tables the small-table walk does not take."""
     nc = caabb.shape[0]
-    if block > PER_THREAD_MAX_BLOCK_T or slab_aabb.shape[0] != 1 or use_supers:
+    if block > SMALL_MAX_BLOCK_T or slab_aabb.shape[0] != 1 or use_supers:
         raise ValueError(f"the small-table walk takes one slab, no supers and at most "
-                         f"{PER_THREAD_MAX_BLOCK_T} rows a cluster; got {slab_aabb.shape[0]} "
+                         f"{SMALL_MAX_BLOCK_T} rows a cluster; got {slab_aabb.shape[0]} "
                          f"slabs, supers {bool(use_supers)}, block_t {block}")
     if small_table_bytes(nc, block) > SMALL_TABLE_MAX_BYTES:
         raise ValueError(f"the small-table walk stages at most {SMALL_TABLE_MAX_BYTES} bytes of "
@@ -636,7 +630,7 @@ def tri_closest_hit_tables(o, d, t_max, tris16, caabb, saabb, slab_aabb, *,
     counts (the TPU kernel counts per lane sub-group; the port per ray).
     CPU tensors → plain version; CUDA tensors → the kernel launch_plan
     picks from block_t (the warp walk, or the small-table walk for
-    block_t <= PER_THREAD_MAX_BLOCK_T)."""
+    block_t <= SMALL_MAX_BLOCK_T)."""
     return _closest(None, o, d, t_max, tris16, caabb, saabb, slab_aabb, block_t,
                     clusters_per_slab, use_supers, stats)
 
@@ -682,23 +676,6 @@ def tri_any_hit_warp(o, d, t_max, tris16, caabb, saabb, slab_aabb, *,
                 clusters_per_slab, use_supers)
 
 
-def tri_closest_hit_thread(o, d, t_max, tris16, caabb, saabb, slab_aabb, *,
-                           block_t: int, clusters_per_slab: int, use_supers: bool,
-                           stats: bool = False):
-    """tri_closest_hit_tables through the per-thread walk (csrc/intersect.cu,
-    one thread per ray) whatever the plan: the A/B baseline of the other
-    two walks."""
-    return _closest("thread", o, d, t_max, tris16, caabb, saabb, slab_aabb, block_t,
-                    clusters_per_slab, use_supers, stats)
-
-
-def tri_any_hit_thread(o, d, t_max, tris16, caabb, saabb, slab_aabb, *,
-                       block_t: int, clusters_per_slab: int, use_supers: bool):
-    """tri_any_hit_tables through the per-thread walk whatever the plan."""
-    return _any("thread", o, d, t_max, tris16, caabb, saabb, slab_aabb, block_t,
-                clusters_per_slab, use_supers)
-
-
 class DeviceTables:
     """TriTables arrays as tensors on one device, with the kernel keywords."""
 
@@ -734,14 +711,6 @@ class DeviceTables:
     def any_hit_warp(self, o, d, t_max):
         return tri_any_hit_warp(o, d, t_max, self.tris16, self.caabb, self.saabb,
                                 self.slab_aabb, **self.kw)
-
-    def closest_thread(self, o, d, t_max):
-        return tri_closest_hit_thread(o, d, t_max, self.tris16, self.caabb, self.saabb,
-                                      self.slab_aabb, **self.kw)
-
-    def any_hit_thread(self, o, d, t_max):
-        return tri_any_hit_thread(o, d, t_max, self.tris16, self.caabb, self.saabb,
-                                  self.slab_aabb, **self.kw)
 
     @property
     def plan(self) -> str:

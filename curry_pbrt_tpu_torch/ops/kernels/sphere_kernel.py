@@ -1,6 +1,6 @@
 """Sphere cluster traversal (K3): the host table construction, the wrappers
-of the closest-hit and any-hit sphere kernels in csrc/intersect_warp.cu and
-csrc/intersect.cu, and their plain PyTorch versions.
+of the closest-hit and any-hit sphere kernels in csrc/intersect_warp.cu, and
+their plain PyTorch versions.
 
 Counterpart of the JAX package's ops/pallas/sphere_kernel.py. A sphere is
 one table row holding its world-to-object transform and radius; spheres are
@@ -24,13 +24,12 @@ Sphere table layout (S_pad, 16) f32:
 
 `sphere_closest_hit_tables` / `sphere_any_hit_tables` run the plain
 versions for CPU tensors; for CUDA tensors they launch the walk that
-intersect_kernel.launch_plan picks from block_s — the warp-cooperative walk
-of csrc/intersect_warp.cu at the tables' 64 rows a cluster — and raise if it
-cannot run: there is no fallback from the card to the plain code.
-`sphere_closest_hit_warp` / `sphere_closest_hit_thread` (and the any-hit
-pair) force one walk: the A/B of chip_smoke.py. Launches are counted in
-intersect_kernel.LAUNCHES: sphere_closest / sphere_any for the warp walk,
-sphere_closest_thread / sphere_any_thread for the per-thread walk.
+intersect_kernel.launch_plan picks for sphere tables, the warp-cooperative
+walk of csrc/intersect_warp.cu at every block_s, and raise if it cannot run:
+there is no fallback from the card to the plain code.
+`sphere_closest_hit_warp` / `sphere_any_hit_warp` name that walk, as the
+triangle wrappers' forced walks do. Launches are counted in
+intersect_kernel.LAUNCHES as sphere_closest / sphere_any.
 """
 
 from __future__ import annotations
@@ -240,84 +239,42 @@ def sphere_any_hit_plain(o, d, t_max, sph16, caabb, saabb, slab_aabb, *,
 # wrappers
 
 
-def _closest(walk, o, d, t_max, sph16, caabb, saabb, slab_aabb, block_s, clusters_per_slab,
-             use_supers):
+def sphere_closest_hit_tables(o, d, t_max, sph16, caabb, saabb, slab_aabb, *,
+                              block_s: int, clusters_per_slab: int, use_supers: bool):
+    """Closest hit over SphereTables tensors → (t: (N,) f32, FLOAT_MAX on
+    miss; row: (N,) int32 table row, -1 on miss; row_sphere maps it to the
+    sphere). CPU tensors → plain version; CUDA tensors → the warp walk."""
     args = (o, d, t_max, sph16, caabb, saabb, slab_aabb)
     _check(*args, block_s, clusters_per_slab, use_supers)
     if o.device.type == "cpu":
         return sphere_closest_hit_plain(*args, block_s=block_s,
                                         clusters_per_slab=clusters_per_slab,
                                         use_supers=use_supers)
-    walk = walk or launch_plan(block_s, spheres=True)
     outs = _closest_outputs(o, stats=False)
-    _launch("curry_sphere_closest_hit_" + walk,
-            "sphere_closest_thread" if walk == "thread" else "sphere_closest", outs, *args,
-            block_s, clusters_per_slab, use_supers)
+    _launch("curry_sphere_closest_hit_" + launch_plan(block_s, spheres=True), "sphere_closest",
+            outs, *args, block_s, clusters_per_slab, use_supers)
     return tuple(outs)
-
-
-def _any(walk, o, d, t_max, sph16, caabb, saabb, slab_aabb, block_s, clusters_per_slab,
-         use_supers):
-    args = (o, d, t_max, sph16, caabb, saabb, slab_aabb)
-    _check(*args, block_s, clusters_per_slab, use_supers)
-    if o.device.type == "cpu":
-        return sphere_any_hit_plain(*args, block_s=block_s, clusters_per_slab=clusters_per_slab,
-                                    use_supers=use_supers)
-    walk = walk or launch_plan(block_s, spheres=True)
-    hit = torch.empty((o.shape[0],), dtype=torch.bool, device=o.device)
-    _launch("curry_sphere_any_hit_" + walk,
-            "sphere_any_thread" if walk == "thread" else "sphere_any", [hit], *args, block_s,
-            clusters_per_slab, use_supers)
-    return hit
-
-
-def sphere_closest_hit_tables(o, d, t_max, sph16, caabb, saabb, slab_aabb, *,
-                              block_s: int, clusters_per_slab: int, use_supers: bool):
-    """Closest hit over SphereTables tensors → (t: (N,) f32, FLOAT_MAX on
-    miss; row: (N,) int32 table row, -1 on miss; row_sphere maps it to the
-    sphere). CPU tensors → plain version; CUDA tensors → the walk
-    launch_plan picks from block_s (the warp walk at 64 rows a cluster)."""
-    return _closest(None, o, d, t_max, sph16, caabb, saabb, slab_aabb, block_s,
-                    clusters_per_slab, use_supers)
 
 
 def sphere_any_hit_tables(o, d, t_max, sph16, caabb, saabb, slab_aabb, *,
                           block_s: int, clusters_per_slab: int, use_supers: bool):
     """Any-hit over SphereTables tensors → (N,) bool. CPU tensors → plain
-    version; CUDA tensors → the walk launch_plan picks."""
-    return _any(None, o, d, t_max, sph16, caabb, saabb, slab_aabb, block_s, clusters_per_slab,
-                use_supers)
+    version; CUDA tensors → the warp walk."""
+    args = (o, d, t_max, sph16, caabb, saabb, slab_aabb)
+    _check(*args, block_s, clusters_per_slab, use_supers)
+    if o.device.type == "cpu":
+        return sphere_any_hit_plain(*args, block_s=block_s, clusters_per_slab=clusters_per_slab,
+                                    use_supers=use_supers)
+    hit = torch.empty((o.shape[0],), dtype=torch.bool, device=o.device)
+    _launch("curry_sphere_any_hit_" + launch_plan(block_s, spheres=True), "sphere_any", [hit],
+            *args, block_s, clusters_per_slab, use_supers)
+    return hit
 
 
-def sphere_closest_hit_warp(o, d, t_max, sph16, caabb, saabb, slab_aabb, *,
-                            block_s: int, clusters_per_slab: int, use_supers: bool):
-    """sphere_closest_hit_tables through the warp walk
-    (csrc/intersect_warp.cu) whatever the plan."""
-    return _closest("warp", o, d, t_max, sph16, caabb, saabb, slab_aabb, block_s,
-                    clusters_per_slab, use_supers)
-
-
-def sphere_any_hit_warp(o, d, t_max, sph16, caabb, saabb, slab_aabb, *,
-                        block_s: int, clusters_per_slab: int, use_supers: bool):
-    """sphere_any_hit_tables through the warp walk whatever the plan."""
-    return _any("warp", o, d, t_max, sph16, caabb, saabb, slab_aabb, block_s,
-                clusters_per_slab, use_supers)
-
-
-def sphere_closest_hit_thread(o, d, t_max, sph16, caabb, saabb, slab_aabb, *,
-                              block_s: int, clusters_per_slab: int, use_supers: bool):
-    """sphere_closest_hit_tables through the per-thread walk
-    (csrc/intersect.cu, one thread per ray) whatever the plan: the A/B
-    baseline."""
-    return _closest("thread", o, d, t_max, sph16, caabb, saabb, slab_aabb, block_s,
-                    clusters_per_slab, use_supers)
-
-
-def sphere_any_hit_thread(o, d, t_max, sph16, caabb, saabb, slab_aabb, *,
-                          block_s: int, clusters_per_slab: int, use_supers: bool):
-    """sphere_any_hit_tables through the per-thread walk whatever the plan."""
-    return _any("thread", o, d, t_max, sph16, caabb, saabb, slab_aabb, block_s,
-                clusters_per_slab, use_supers)
+# The sphere tables' one walk, under the name the triangle wrappers' forced
+# warp walk has (chip_smoke.py's phase 3b calls it so).
+sphere_closest_hit_warp = sphere_closest_hit_tables
+sphere_any_hit_warp = sphere_any_hit_tables
 
 
 class DeviceSphereTables:
@@ -347,12 +304,6 @@ class DeviceSphereTables:
 
     def any_hit_warp(self, o, d, t_max):
         return sphere_any_hit_warp(o, d, t_max, *self._tables(), **self.kw)
-
-    def closest_thread(self, o, d, t_max):
-        return sphere_closest_hit_thread(o, d, t_max, *self._tables(), **self.kw)
-
-    def any_hit_thread(self, o, d, t_max):
-        return sphere_any_hit_thread(o, d, t_max, *self._tables(), **self.kw)
 
     @property
     def plan(self) -> str:

@@ -1,35 +1,29 @@
-"""A/B of the per-ray kernels K1 / K2 against the group kernel K4 and its
-baseline, and of the launch plan's K1 / K2 walk against the per-thread
-walk, on the shared per-bounce workload.
+"""A/B of the per-ray kernels K1 / K2 against the group kernel K4 on the
+shared per-bounce workload.
 
     python -m curry_pbrt_tpu_torch.tools.probe_group_kernel [scenes ...] [--rays N] [--depth D] [--device cpu]
 
 Counterpart of the JAX package's tools/probe_group_kernel.py. K1 / K2 run
 on the render path's tables (aggregate.plan_tri_kernel), through the walk
-intersect_kernel.launch_plan picks (the warp walk on the mesh scenes) and
-through the per-thread walk (csrc/intersect.cu); K4 on its own tables at
-block_t 128, clusters_per_slab 128, supers on (intersect_group.
-group_tables), through the kernel (each ray tests only the clusters its own
-gate lets in) and through the baseline (`*_group_rule`: every live ray of the
-group tests every cluster the group visits). Per bounce it reports:
-  - whether K4's t, and the baseline's, are bit-equal to the plain
-    version's (the group rule), with rows equal to its rows (tie rows: 0)
-    and any-hit equal;
-  - whether K4's t, and the per-thread walk's, are bit-equal to K1's;
+intersect_kernel.launch_plan picks (the warp walk on the mesh scenes); K4
+on its own tables at block_t 128, clusters_per_slab 128, supers on
+(intersect_group.group_tables), each ray testing only the clusters its own
+gate lets in. Per bounce it reports:
+  - whether K4's t is bit-equal to the plain version's (the group rule),
+    with rows equal to its rows (tie rows: 0) and any-hit equal;
+  - whether K4's t is bit-equal to K1's;
   - prim mismatches against K1 (the winning rows mapped through each
     table's prim), and how many of them are not exact-t ties — those must
-    be 0 (for K4; for the per-thread walk, rows on the same tables);
-  - any-hit mismatches, on t_max shrunk to 0.999 of K1's closest t for hits
-    (a shadow-like bound), of K4, its baseline and the per-thread K2: they
-    must be 0;
+    be 0;
+  - any-hit mismatches of K4 against K2, on t_max shrunk to 0.999 of K1's
+    closest t for hits (a shadow-like bound): they must be 0;
   - the tiles the plain versions count: the group rule's (ray-tiles of
     K4's rows, every ray of a visited cluster's group) and, at the bounces
     in `stats_at`, the gate's (the tiles the kernel tests) and K1's and
     K2's own (the function's least work);
-  - each kernel's time on the card: K4 and its baseline in turns by CUDA
-    events around back-to-back calls (cuda_ms) and by the card's time alone
-    (device_ms); closest K1 / per-thread K1 and any K2 / per-thread K2 in
-    turns; the plain versions' one call.
+  - each kernel's time on the card: closest K1 / K4 and any K2 / K4 in
+    turns by CUDA events around back-to-back calls (cuda_ms), K4 by the
+    card's time alone (device_ms); the plain versions' one call.
 On the CPU the kernels' plain versions run and no time is measured.
 """
 
@@ -171,12 +165,6 @@ class Pair:
     def any4(self, o, d, t_max):
         return G.tri_any_hit_groups(*self.k4_args(o, d, t_max), **self.kw4)
 
-    def closest4_rule(self, o, d, t_max):
-        return G.tri_closest_hit_group_rule(*self.k4_args(o, d, t_max), **self.kw4)
-
-    def any4_rule(self, o, d, t_max):
-        return G.tri_any_hit_group_rule(*self.k4_args(o, d, t_max), **self.kw4)
-
     def closest4_plain(self, o, d, t_max, gate=False):
         """The plain version with stats: (t, row, entered, improved)."""
         return G.tri_closest_hit_groups_plain(*self.k4_args(o, d, t_max), **self.kw4, stats=True,
@@ -227,23 +215,16 @@ def analyze(scene_name, n_rays: int, depth: int, device="cuda", seed: int = 0,
         o, d, tm = b.o, b.d, b.t_max
         tm_s = torch.where(b.t < 1e29, b.t * 0.999, tm)
         t4, r4 = p.closest4(o, d, tm)
-        t4b, r4b = p.closest4_rule(o, d, tm)
-        h4, h4b = p.any4(o, d, tm_s), p.any4_rule(o, d, tm_s)
+        h4 = p.any4(o, d, tm_s)
         t4_2, r4_2 = p.closest4(o, d, tm)  # a second launch: bit-equal
         h4_2 = p.any4(o, d, tm_s)
         (t_p, r_p, ent, _), plain_ms = _timed(lambda: p.closest4_plain(o, d, tm), on_card)
         (h_p, any_ent), any_plain_ms = _timed(lambda: p.any4_plain(o, d, tm_s), on_card)
         n_mis, n_bad = non_tie_mismatches(p.k1, p.prim1, b.row, p.k4, p.prim4, r4, o, d, tm)
-        t1t, r1t = p.k1.closest_thread(o, d, tm)
-        _, n_bad_t = non_tie_mismatches(p.k1, p.prim1, b.row, p.k1, p.prim1, r1t, o, d, tm)
         h2 = p.k1.any_hit(o, d, tm_s)
-        h2t = p.k1.any_hit_thread(o, d, tm_s)
         r = {"bounce": b.index, "active": b.active, "hits": int(b.hit.sum()),
              "plain_t_bit_equal": same_bits(t4, t_p), "plain_tie_rows": int((r4 != r_p).sum()),
              "plain_any_mismatches": int((h4 != h_p).sum()),
-             "rule_plain_t_bit_equal": same_bits(t4b, t_p),
-             "rule_plain_tie_rows": int((r4b != r_p).sum()),
-             "rule_plain_any_mismatches": int((h4b != h_p).sum()),
              "relaunch_equal": same_bits(t4, t4_2) and bool(torch.equal(r4, r4_2))
              and bool(torch.equal(h4, h4_2)),
              "dead_hits": int((r4[tm <= 0] >= 0).sum()) + int(h4[tm_s <= 0].sum()),
@@ -252,18 +233,12 @@ def analyze(scene_name, n_rays: int, depth: int, device="cuda", seed: int = 0,
              "prim_mismatches": n_mis, "non_tie_prim_mismatches": n_bad,
              "any_mismatches": int((h2 != h4).sum()), "any_hits": int(h2.sum()),
              "any_live": int((tm_s > 0).sum()),
-             "thread_t_bit_equal": bool(torch.equal(b.t, t1t)),
-             "thread_non_tie_row_mismatches": n_bad_t,
-             "thread_any_mismatches": int((h2 != h2t).sum()),
              "group_tiles": int(ent.sum()), "group_any_tiles": int(any_ent.sum()),
-             "max_abs_err": _t_err(t4, t_p), "rule_max_abs_err": _t_err(t4b, t_p),
-             "any_max_abs_err": _h_err(h4, h_p), "rule_any_max_abs_err": _h_err(h4b, h_p),
+             "max_abs_err": _t_err(t4, t_p), "any_max_abs_err": _h_err(h4, h_p),
              "gate_tiles": None, "gate_any_tiles": None, "k1_tiles": None, "k2_tiles": None,
              "plain_ms": plain_ms, "any_plain_ms": any_plain_ms,
-             "k1_ms": None, "k4_ms": None, "k4_rule_ms": None, "k4_dev_ms": None,
-             "k4_rule_dev_ms": None, "k2_ms": None, "k4_any_ms": None, "k4_any_rule_ms": None,
-             "k4_any_dev_ms": None, "k4_any_rule_dev_ms": None,
-             "k1_thread_ms": None, "k2_thread_ms": None}
+             "k1_ms": None, "k4_ms": None, "k4_dev_ms": None, "k2_ms": None,
+             "k4_any_ms": None, "k4_any_dev_ms": None}
         if b.index in stats_at:
             t_g, r_g, ent_g, _ = p.closest4_plain(o, d, tm, gate=True)
             h_g, any_ent_g = p.any4_plain(o, d, tm_s, gate=True)
@@ -279,21 +254,12 @@ def analyze(scene_name, n_rays: int, depth: int, device="cuda", seed: int = 0,
                      k1_tiles=int(ent1.sum()), k2_tiles=int(any_ent1.sum()))
         if on_card:
             c4 = lambda: p.closest4(o, d, tm)  # noqa: E731
-            c4b = lambda: p.closest4_rule(o, d, tm)  # noqa: E731
             a4 = lambda: p.any4(o, d, tm_s)  # noqa: E731
-            a4b = lambda: p.any4_rule(o, d, tm_s)  # noqa: E731
-            r["k4_rule_ms"], r["k4_ms"] = turns(c4b, c4, reps)
-            r["k4_rule_dev_ms"], r["k4_dev_ms"] = turns(c4b, c4, reps, device_ms)
-            r["k4_any_rule_ms"], r["k4_any_ms"] = turns(a4b, a4, reps)
-            r["k4_any_rule_dev_ms"], r["k4_any_dev_ms"] = turns(a4b, a4, reps, device_ms)
-            r["k1_thread_ms"], r["k1_ms"] = turns(lambda: p.k1.closest_thread(o, d, tm),
-                                                  lambda: p.k1.closest(o, d, tm), reps)
-            r["k2_thread_ms"], r["k2_ms"] = turns(lambda: p.k1.any_hit_thread(o, d, tm_s),
-                                                  lambda: p.k1.any_hit(o, d, tm_s), reps)
+            r["k1_ms"], r["k4_ms"] = turns(lambda: p.k1.closest(o, d, tm), c4, reps)
+            r["k2_ms"], r["k4_any_ms"] = turns(lambda: p.k1.any_hit(o, d, tm_s), a4, reps)
+            r["k4_dev_ms"], r["k4_any_dev_ms"] = device_ms(c4, reps), device_ms(a4, reps)
         rows.append(r)
-    keys = ("k1_ms", "k4_ms", "k4_rule_ms", "k4_dev_ms", "k4_rule_dev_ms", "k2_ms",
-            "k4_any_ms", "k4_any_rule_ms", "k4_any_dev_ms", "k4_any_rule_dev_ms",
-            "k1_thread_ms", "k2_thread_ms")
+    keys = ("k1_ms", "k4_ms", "k4_dev_ms", "k2_ms", "k4_any_ms", "k4_any_dev_ms")
     tot = {k: (sum(r[k] for r in rows) if on_card else None) for k in keys}
     return {"scene": str(scene_name), "device": str(wl.device), "rays": int(b.o.shape[0]),
             "depth": depth, "k1_tables": dict(p.k1.kw, clusters=int(p.k1.caabb.shape[0]),
@@ -304,26 +270,19 @@ def analyze(scene_name, n_rays: int, depth: int, device="cuda", seed: int = 0,
 
 
 def check(s: dict) -> None:
-    """Raise unless every bounce has K4 and its baseline equal to the plain
-    version (t to the bit, rows exactly, any-hit), K4 launched twice equal,
-    no hit on a dead lane, K4's t bit-equal to K1's with prims equal up to
-    exact-t ties and any-hit equal to K2's, and the per-thread walk equal to
-    K1 / K2."""
+    """Raise unless every bounce has K4 equal to the plain version (t to the
+    bit, rows exactly, any-hit), K4 launched twice equal, no hit on a dead
+    lane, and K4's t bit-equal to K1's with prims equal up to exact-t ties
+    and any-hit equal to K2's."""
     for r in s["bounces"]:
         where = f"{s['scene']} bounce {r['bounce']}"
-        if not (r["plain_t_bit_equal"] and r["rule_plain_t_bit_equal"]) or r["plain_tie_rows"] \
-                or r["rule_plain_tie_rows"] or r["plain_any_mismatches"] \
-                or r["rule_plain_any_mismatches"]:
-            raise AssertionError(f"{where}: K4 or its baseline disagrees with the plain version "
-                                 f"({r})")
+        if not r["plain_t_bit_equal"] or r["plain_tie_rows"] or r["plain_any_mismatches"]:
+            raise AssertionError(f"{where}: K4 disagrees with the plain version ({r})")
         if not r["relaunch_equal"] or r["dead_hits"]:
             raise AssertionError(f"{where}: K4 differs between two launches or hit on a dead "
                                  f"lane ({r})")
         if not r["t_bit_equal"] or r["non_tie_prim_mismatches"] or r["any_mismatches"]:
             raise AssertionError(f"{where}: K4 disagrees with K1 / K2 ({r})")
-        if (not r["thread_t_bit_equal"] or r["thread_non_tie_row_mismatches"]
-                or r["thread_any_mismatches"]):
-            raise AssertionError(f"{where}: the per-thread walk disagrees with K1 / K2 ({r})")
         if r["gate_tiles"] is not None and not (
                 r["gate_tiles"] <= r["group_tiles"] and r["gate_any_tiles"] <= r["group_any_tiles"]):
             raise AssertionError(f"{where}: the gate counts more tiles than the group rule ({r})")
@@ -336,36 +295,26 @@ def report(s: dict) -> str:
              f"clusters of {k4['block_t']} in {k4['slabs']} slab(s)"]
     for r in s["bounces"]:
         line = (f"  bounce {r['bounce']}: active {r['active']:>8}; K4 vs plain: t bit-equal "
-                f"{r['plain_t_bit_equal']} (baseline {r['rule_plain_t_bit_equal']}), tie rows "
-                f"{r['plain_tie_rows']} (baseline {r['rule_plain_tie_rows']}), any-hit "
-                f"mismatches {r['plain_any_mismatches']} (baseline "
-                f"{r['rule_plain_any_mismatches']}), relaunch equal {r['relaunch_equal']}; "
-                f"K4 vs K1: t bit-equal {r['t_bit_equal']} (per-thread "
-                f"{r['thread_t_bit_equal']}), prim mismatches {r['prim_mismatches']} "
-                f"({r['non_tie_prim_mismatches']} not ties; per-thread "
-                f"{r['thread_non_tie_row_mismatches']}), any-hit mismatches {r['any_mismatches']} "
-                f"(per-thread {r['thread_any_mismatches']}); group-rule tiles "
-                f"{r['group_tiles']} / any {r['group_any_tiles']}")
+                f"{r['plain_t_bit_equal']}, tie rows {r['plain_tie_rows']}, any-hit mismatches "
+                f"{r['plain_any_mismatches']}, relaunch equal {r['relaunch_equal']}; K4 vs K1: "
+                f"t bit-equal {r['t_bit_equal']}, prim mismatches {r['prim_mismatches']} "
+                f"({r['non_tie_prim_mismatches']} not ties), any-hit mismatches "
+                f"{r['any_mismatches']}; group-rule tiles {r['group_tiles']} / any "
+                f"{r['group_any_tiles']}")
         if r["gate_tiles"] is not None:
             line += (f", gate's {r['gate_tiles']} / any {r['gate_any_tiles']}, K1's "
                      f"{r['k1_tiles']} (of {k1['block_t']} rows) / K2's {r['k2_tiles']}")
         if r["k4_ms"] is not None:
-            line += (f"; closest K4 {r['k4_ms']:.4f} ms, device {r['k4_dev_ms']:.4f} (baseline "
-                     f"{r['k4_rule_ms']:.4f}, device {r['k4_rule_dev_ms']:.4f}; in turns), K1 "
-                     f"{r['k1_ms']:.4f} (per-thread {r['k1_thread_ms']:.4f}), plain "
-                     f"{r['plain_ms']:.1f}; any K4 {r['k4_any_ms']:.4f} ms, device "
-                     f"{r['k4_any_dev_ms']:.4f} (baseline {r['k4_any_rule_ms']:.4f}, device "
-                     f"{r['k4_any_rule_dev_ms']:.4f}), K2 {r['k2_ms']:.4f} (per-thread "
-                     f"{r['k2_thread_ms']:.4f}), plain {r['any_plain_ms']:.1f}")
+            line += (f"; closest K4 {r['k4_ms']:.4f} ms, device {r['k4_dev_ms']:.4f}, K1 "
+                     f"{r['k1_ms']:.4f} (in turns), plain {r['plain_ms']:.1f}; any K4 "
+                     f"{r['k4_any_ms']:.4f} ms, device {r['k4_any_dev_ms']:.4f}, K2 "
+                     f"{r['k2_ms']:.4f} (in turns), plain {r['any_plain_ms']:.1f}")
         lines.append(line)
     t = s["totals"]
     if t["k1_ms"] is not None:
-        lines.append(f"  totals: closest K4 {t['k4_ms']:.3f} ms, device {t['k4_dev_ms']:.3f} "
-                     f"(baseline {t['k4_rule_ms']:.3f}, device {t['k4_rule_dev_ms']:.3f}), K1 "
-                     f"{t['k1_ms']:.3f} (per-thread {t['k1_thread_ms']:.3f}); any K4 "
-                     f"{t['k4_any_ms']:.3f} ms, device {t['k4_any_dev_ms']:.3f} (baseline "
-                     f"{t['k4_any_rule_ms']:.3f}, device {t['k4_any_rule_dev_ms']:.3f}), K2 "
-                     f"{t['k2_ms']:.3f} (per-thread {t['k2_thread_ms']:.3f})")
+        lines.append(f"  totals: closest K4 {t['k4_ms']:.3f} ms, device {t['k4_dev_ms']:.3f}, "
+                     f"K1 {t['k1_ms']:.3f}; any K4 {t['k4_any_ms']:.3f} ms, device "
+                     f"{t['k4_any_dev_ms']:.3f}, K2 {t['k2_ms']:.3f}")
     return "\n".join(lines)
 
 

@@ -28,9 +28,7 @@ The variants, each one change from the shipped kernel:
                  power of two m2, lane l on gated ray l % m2 and rows
                  l / m2, + 32 / m2, ...; rows re-read by every lane that
                  needs them, the run-time axis (the lanes' rays differ), a
-                 butterfly over the lanes of a ray;
-  baseline       the *_group_rule kernels: the first port (PR 3), the group rule
-                 with rows re-read for every ray and a butterfly for all 8.
+                 butterfly over the lanes of a ray.
 Each call's times are the card's time alone (roofline.device_ms, in turns
 with the shipped kernel).
 
@@ -144,8 +142,8 @@ _BOUNDS = "__global__ void __launch_bounds__(WARPS_PER_BLOCK * WARP)\n    {}_gro
 _BOUNDS_6 = "__global__ void __launch_bounds__(WARPS_PER_BLOCK * WARP, 6)\n    {}_group_kernel"
 # (old, new, occurrences) applied to the shipped source, in order
 VARIANTS = {
-    "group rule": [("gate = __ballot_sync(FULL, (tn <= b * GATE_SLACK || isinf(b)) && b > 0.0f);",
-                    "gate = __ballot_sync(FULL, lane < GROUP && b > 0.0f);", 1)],
+    "group rule": [("__ballot_sync(FULL, (tn <= b * GATE_SLACK || isinf(b)) && b > 0.0f);",
+                    "__ballot_sync(FULL, lane < GROUP && b > 0.0f);", 1)],
     "butterfly": [(_WARP_MIN, _BUTTERFLY, 1)],
     "scalar rows": [("            TriPrim::load(rows + (size_t)i * PRIM_COLS, p[j]);",
                      "            for (int m = 0; m < TRI_USED; ++m) p[j][m] = rows[(size_t)i * "
@@ -159,7 +157,7 @@ VARIANTS = {
     "pair lanes": [(_CLOSEST_TILE, _PAIR_TILE, 1)],
 }
 CLOSEST_ONLY, ANY_ONLY = ("pair lanes",), ("every chunk",)
-NAMES = ["shipped", *VARIANTS, "baseline"]
+NAMES = ["shipped", *VARIANTS]
 
 
 def variant_source(name: str) -> str:
@@ -277,9 +275,9 @@ def report_k1_rows(s: dict) -> str:
 
 def analyze(scene_name="mesh10k.pbrt", n_rays: int = 1 << 22, depth: int = 6, reps: int = 5,
             device="cuda", seed: int = 0) -> dict:
-    """Every variant and the baseline against the shipped kernel, in turns,
-    on each bounce's closest-hit rays and its shadow rays (t_max 0.999 of
-    the closest t) → a summary dict of device ms."""
+    """Every variant against the shipped kernel, in turns, on each bounce's
+    closest-hit rays and its shadow rays (t_max 0.999 of the closest t) → a
+    summary dict of device ms."""
     if torch.device(device).type != "cuda":
         raise ValueError("the probe times kernels on the card: device must be cuda")
     libs = build_variants()
@@ -295,23 +293,21 @@ def analyze(scene_name="mesh10k.pbrt", n_rays: int = 1 << 22, depth: int = 6, re
             def run(lib, kind=kind, tm=tm):
                 return run_on(lib, kind, tm)
 
-            base = ((lambda: p.closest4_rule(b.o, b.d, tm)) if kind == "closest"
-                    else (lambda: [p.any4_rule(b.o, b.d, tm)]))
             ref = run(shipped)
             row = {"bounce": b.index, "kind": kind, "live": int((tm > 0).sum()), "ms": {}}
             ship_ms = []
-            for name in [*VARIANTS, "baseline"]:
+            for name in VARIANTS:
                 if name in (CLOSEST_ONLY if kind == "any" else ANY_ONLY):
                     continue
-                fn = base if name == "baseline" else (lambda lib=libs[name]: run(lib))
-                got = fn()
+                got = run(libs[name])
                 same = all(torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
                                        y.view(torch.int32) if y.dtype == torch.float32 else y)
                            for x, y in zip(got, ref))
                 if not same:
                     raise AssertionError(f"{kind} bounce {b.index}: variant {name!r} differs "
                                          f"from the shipped kernel")
-                s_ms, row["ms"][name] = turns(lambda: run(shipped), fn, reps, device_ms)
+                s_ms, row["ms"][name] = turns(lambda: run(shipped),
+                                              lambda lib=libs[name]: run(lib), reps, device_ms)
                 ship_ms.append(s_ms)
             row["ms"]["shipped"] = sum(ship_ms) / len(ship_ms)
             rows.append(row)

@@ -9,9 +9,8 @@ Counterpart of the JAX package's tools/probe_slab_grid.py (`run`): over a
 with tab (8·S, 4), rays (4, block_rays·B), slabs (slab_rows·S, 8) float32 →
 out (1, block_rays·B). The JAX shapes are the defaults (block_rays 256,
 slab_rows 8, 2 blocks, 3 slabs). The kernel (`slab_grid`) and the plain
-version sum each slab in the same order, so they are bit-equal; the first
-port (`slab_grid_baseline`, the A/B baseline) sums serially and agrees
-within rtol 1e-5, the JAX probe's own check, which `run` applies to both.
+version sum each slab in the same order, so they are bit-equal; `run`
+holds them to rtol 1e-5, the JAX probe's own check.
 
     python -m curry_pbrt_tpu_torch.tools.probe_slab_grid [--blocks B --slabs S] [--device cpu]
 """
@@ -67,7 +66,10 @@ def slab_grid_plain(tab, rays, slabs, *, slab_rows: int = SLAB_ROWS):
     return acc[None]
 
 
-def _launch(entry: str, counter: str, tab, rays, slabs, block_rays: int, slab_rows: int):
+def slab_grid(tab, rays, slabs, *, block_rays: int = BLOCK_RAYS, slab_rows: int = SLAB_ROWS):
+    """P → (1, N) float32. CPU tensors → plain version; CUDA tensors → the
+    CUDA kernel (a grid sized to the card, 16-byte loads and stores: N a
+    multiple of 4 and row 0 of rays 16-byte aligned, or it raises)."""
     n_slabs = tab.shape[0] // 8
     n = rays.shape[1]
     if (tab.shape != (8 * n_slabs, 4) or rays.shape != (4, n)
@@ -86,37 +88,21 @@ def _launch(entry: str, counter: str, tab, rays, slabs, block_rays: int, slab_ro
     if n == 0:
         return out
     keep = [x.contiguous() for x in (tab, rays, slabs)]
-    err = getattr(load_library(), entry)(
+    err = load_library().curry_slab_grid(
         *(x.data_ptr() for x in keep), n_slabs, slab_rows, block_rays, n, out.data_ptr(),
         torch.cuda.current_stream(rays.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
-    LAUNCHES[counter] += 1
+        raise RuntimeError(f"curry_slab_grid kernel launch failed: CUDA error {err}")
+    LAUNCHES["slab_grid"] += 1
     return out
 
 
-def slab_grid(tab, rays, slabs, *, block_rays: int = BLOCK_RAYS, slab_rows: int = SLAB_ROWS):
-    """P → (1, N) float32. CPU tensors → plain version; CUDA tensors → the
-    CUDA kernel (a grid sized to the card, 16-byte loads and stores: N a
-    multiple of 4 and row 0 of rays 16-byte aligned, or it raises)."""
-    return _launch("curry_slab_grid", "slab_grid", tab, rays, slabs, block_rays, slab_rows)
-
-
-def slab_grid_baseline(tab, rays, slabs, *, block_rays: int = BLOCK_RAYS,
-                       slab_rows: int = SLAB_ROWS):
-    """P through the first port (one CTA per block of block_rays rays), the
-    A/B baseline; the same contract as slab_grid."""
-    return _launch("curry_slab_grid_baseline", "slab_grid_baseline", tab, rays, slabs,
-                   block_rays, slab_rows)
-
-
 def run(n_blocks: int = 2, n_slabs: int = 3, device="cuda", block_rays: int = BLOCK_RAYS,
-        slab_rows: int = SLAB_ROWS, kernel=None):
-    """P (`kernel`: slab_grid by default, or slab_grid_baseline) against its
-    plain version on the JAX probe's inputs at this shape → (out, max |Δ|,
-    max relative Δ); raises beyond rtol 1e-5."""
+        slab_rows: int = SLAB_ROWS):
+    """P against its plain version on the JAX probe's inputs at this shape
+    → (out, max |Δ|, max relative Δ); raises beyond rtol 1e-5."""
     inputs = make_inputs(n_blocks, n_slabs, block_rays, slab_rows, device)
-    out = (kernel or slab_grid)(*inputs, block_rays=block_rays, slab_rows=slab_rows)
+    out = slab_grid(*inputs, block_rays=block_rays, slab_rows=slab_rows)
     ref = slab_grid_plain(*inputs, slab_rows=slab_rows)
     if not torch.allclose(out, ref, rtol=RTOL, atol=0.0):
         raise AssertionError(f"P disagrees with its plain version beyond rtol {RTOL}")

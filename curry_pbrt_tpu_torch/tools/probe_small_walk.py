@@ -22,9 +22,7 @@ them:
                  (tri_test<-1, false>: selects, NaN-checking maxima); dead
                  rays still skipped;
   global         and the table read where it lies (L1 / L2) instead of
-                 staged in shared memory;
-  per-thread     the per-thread walk of csrc/intersect.cu (every lane
-                 walked, box_enter, scalar row loads): the A/B baseline.
+                 staged in shared memory.
 Each call's times are the card's time alone (roofline.device_ms, in turns
 with the shipped walk); the sums are per headline pass (x its chunks).
 Needs a card; the variants are built with nvcc into build/probe_small/.
@@ -143,9 +141,8 @@ def capture_headline_chunk(scene_path, res: int, spp: int, depth: int, device):
 
 
 def analyze(scene_path, res=512, spp=64, depth=5, reps=10, device="cuda") -> dict:
-    """Every variant and the per-thread walk against the shipped walk, in
-    turns, on each captured call → a summary dict (per-call and per-pass
-    device ms)."""
+    """Every variant against the shipped walk, in turns, on each captured
+    call → a summary dict (per-call and per-pass device ms)."""
     if torch.device(device).type != "cuda":
         raise ValueError("the probe times kernels on the card: device must be cuda")
     libs = build_variants()
@@ -165,14 +162,11 @@ def analyze(scene_path, res=512, spp=64, depth=5, reps=10, device="cuda") -> dic
             K.launch_entry(lib, entry, outs + ([None, None] if kind == "closest" else []), *args)
             return outs
 
-        thread = (lambda: tab.closest_thread(o, d, t_max)) if kind == "closest" else (
-            lambda: tab.any_hit_thread(o, d, t_max))
         ref = run(shipped)
         row = {"kind": kind, "call": call, "n": o.shape[0], "live": int((t_max > 0).sum()),
                "ms": {}}
-        for name, lib in list(libs.items()) + [("per-thread", None)]:
-            got = thread() if lib is None else run(lib)
-            got = got if isinstance(got, (list, tuple)) else [got]
+        for name, lib in libs.items():
+            got = run(lib)
             if kind == "closest":
                 same = torch.equal(got[0].view(torch.int32), ref[0].view(torch.int32)) and \
                     torch.equal(got[1], ref[1])
@@ -181,12 +175,12 @@ def analyze(scene_path, res=512, spp=64, depth=5, reps=10, device="cuda") -> dic
             if not same:
                 raise AssertionError(f"{kind} call {call}: variant {name!r} differs from the "
                                      f"shipped walk")
-            fn = thread if lib is None else (lambda lib=lib: run(lib))
-            ship_ms, row["ms"][name] = turns(lambda: run(shipped), fn, reps, device_ms)
+            ship_ms, row["ms"][name] = turns(lambda: run(shipped), lambda lib=lib: run(lib),
+                                             reps, device_ms)
             row["ms"].setdefault("shipped", []).append(ship_ms)
         row["ms"]["shipped"] = sum(row["ms"]["shipped"]) / len(row["ms"]["shipped"])
         rows.append(row)
-    names = ["shipped", *VARIANTS, "per-thread"]
+    names = ["shipped", *VARIANTS]
     per_pass = {kind: {v: n_chunks * sum(r["ms"][v] for r in rows if r["kind"] == kind)
                        for v in names} for kind in ("closest", "any")}
     return {"card": nvidia_smi("name,power.limit"), "scene": str(scene_path), "res": res,

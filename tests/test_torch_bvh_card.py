@@ -1,7 +1,6 @@
-"""The BVH walks of csrc/bvh_walk.cu against their plain version
-(ops/bvh.py bvh_traverse) on the card: the live-ray walk (bvh_closest /
-bvh_any) and the per-thread baseline. Imports nothing
-of JAX, so that it runs where only the port is installed:
+"""The BVH walk of csrc/bvh_walk.cu against its plain version (ops/bvh.py
+bvh_traverse) on the card: the live-ray walk (bvh_closest / bvh_any).
+Imports nothing of JAX, so that it runs where only the port is installed:
 
     python -m pytest --noconftest tests/test_torch_bvh_card.py -q
 
@@ -176,20 +175,4 @@ def test_live_walk_makes_no_host_sync(card):
     torch.cuda.synchronize()
     assert TK.LAUNCHES["bvh_closest"] == before["bvh_closest"] + 1
     assert TK.LAUNCHES["bvh_any"] == before["bvh_any"] + 1
-    _hold(bvh, rays, t_k, r_k, h_k)
-
-
-@pytest.mark.cuda
-def test_per_thread_walk_matches_plain(card):
-    """The first design, kept as the A/B baseline, still gives the plain
-    version's results and counts its own launches."""
-    bvh = _soup_bvh()
-    rays = _rays(1 << 14, 12)
-    before = dict(TK.LAUNCHES)
-    t_k, r_k = BK.bvh_closest_per_thread(bvh, *rays)
-    h_k = BK.bvh_any_per_thread(bvh, *rays)
-    torch.cuda.synchronize()
-    assert TK.LAUNCHES["bvh_closest_thread"] == before["bvh_closest_thread"] + 1
-    assert TK.LAUNCHES["bvh_any_thread"] == before["bvh_any_thread"] + 1
-    assert TK.LAUNCHES["bvh_closest"] == before["bvh_closest"]
     _hold(bvh, rays, t_k, r_k, h_k)

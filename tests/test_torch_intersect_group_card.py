@@ -1,15 +1,14 @@
-"""The group kernel K4 of csrc/intersect_group.cu (closest and any hit) and
-its baseline (`tri_*_hit_group_rule`) against their plain version on the
-card. Imports nothing of JAX, so that it runs where only the port is
-installed:
+"""The group kernel K4 of csrc/intersect_group.cu (closest and any hit)
+against its plain version on the card. Imports nothing of JAX, so that it
+runs where only the port is installed:
 
     python -m pytest --noconftest tests/test_torch_intersect_group_card.py -q
 
 Tolerance: none. t bit-equal to the plain version's (the group rule), rows
 equal to its rows (no tie allowance: the gate skips only clusters that hold
 no hit the group rule accepts), any-hit equal, dead lanes (t_max 0 or -1)
-no hit, two launches bit-equal, the baseline equal to K4. Without a card
-each test skips (marked cuda).
+no hit, two launches bit-equal. Without a card each test skips (marked
+cuda).
 """
 
 import numpy as np
@@ -56,8 +55,8 @@ def _rays(n, seed, live=None):
 
 
 def _hold(tab, rays):
-    """K4 (twice) and its baseline against the plain version; counts the
-    launches. Returns the closest hits."""
+    """K4 (twice) against the plain version; counts the launches. Returns
+    the closest hits."""
     dev = TK.DeviceTables(tab, "cuda")
     kw = TG.group_kw(dev)
     o, d, t_max = rays
@@ -67,18 +66,15 @@ def _hold(tab, rays):
     h_4 = TG.tri_any_hit_groups(*args, **kw)
     t_2, r_2 = TG.tri_closest_hit_groups(*args, **kw)
     h_2 = TG.tri_any_hit_groups(*args, **kw)
-    t_b, r_b = TG.tri_closest_hit_group_rule(*args, **kw)
-    h_b = TG.tri_any_hit_group_rule(*args, **kw)
     torch.cuda.synchronize()
     n = o.shape[0]
     assert t_4.shape == r_4.shape == h_4.shape == (n,)
     if n:
-        for key, k in (("tri_closest_group", 2), ("tri_any_group", 2),
-                       ("tri_closest_group_rule", 1), ("tri_any_group_rule", 1)):
-            assert TK.LAUNCHES[key] == before[key] + k
+        for key in ("tri_closest_group", "tri_any_group"):
+            assert TK.LAUNCHES[key] == before[key] + 2
     t_p, r_p = TG.tri_closest_hit_groups_plain(*args, **kw)
     h_p = TG.tri_any_hit_groups_plain(*args, **kw)
-    for t, r, h in ((t_4, r_4, h_4), (t_2, r_2, h_2), (t_b, r_b, h_b)):
+    for t, r, h in ((t_4, r_4, h_4), (t_2, r_2, h_2)):
         assert torch.equal(t.view(torch.int32), t_p.view(torch.int32))
         assert torch.equal(r, r_p)
         assert torch.equal(h, h_p)
@@ -153,8 +149,7 @@ def test_group_kernel_never_syncs_the_host(card):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        for fn in (TG.tri_closest_hit_groups, TG.tri_any_hit_groups,
-                   TG.tri_closest_hit_group_rule, TG.tri_any_hit_group_rule):
+        for fn in (TG.tri_closest_hit_groups, TG.tri_any_hit_groups):
             fn(*args, **kw)
     finally:
         torch.cuda.set_sync_debug_mode("default")

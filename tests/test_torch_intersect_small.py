@@ -354,13 +354,14 @@ def test_rehearsal_matches_jax(case):
 
 
 def test_launch_plan_sends_small_tables_to_the_small_walk():
-    """block_t <= 8: the small-table walk for triangles, the per-thread walk
-    for spheres (the small walk has no sphere test); beyond: the warp walk.
-    Every table the small-scene plan builds fits the walk's shared memory."""
+    """block_t <= 8: the small-table walk for triangles; beyond, and for
+    sphere tables at every size (the small walk has no sphere test): the
+    warp walk. Every table the small-scene plan builds fits the walk's
+    shared memory."""
     assert TK.launch_plan(8) == TK.launch_plan(1) == "small"
-    assert TK.launch_plan(8, spheres=True) == "thread"
+    assert TK.launch_plan(8, spheres=True) == TK.launch_plan(1, spheres=True) == "warp"
     assert TK.launch_plan(9) == TK.launch_plan(64) == TK.launch_plan(64, spheres=True) == "warp"
-    assert TK.PER_THREAD_MAX_BLOCK_T == CU["MAX_BLOCK"]
+    assert TK.SMALL_MAX_BLOCK_T == CU["MAX_BLOCK"]
     assert TK.SMALL_TABLE_MAX_BYTES == CU["MAX_TABLE_BYTES"]
     assert (TK.SMALL_ROW_BYTES, TK.SMALL_BOX_BYTES) == (4 * CU["ROW"], 32)
     # the order list (THREADS x MAX_SCAN ints) and the counts fit beside the
@@ -413,9 +414,9 @@ def test_small_wrappers_refuse_what_the_walk_cannot_stage():
 def test_small_walk_entry_points_are_declared():
     assert {"curry_tri_closest_hit_small", "curry_tri_any_hit_small"} <= set(build.ENTRY_POINTS)
     assert build.ENTRY_POINTS["curry_tri_closest_hit_small"] == \
-        build.ENTRY_POINTS["curry_tri_closest_hit_thread"]
+        build.ENTRY_POINTS["curry_tri_closest_hit_warp"]
     assert build.ENTRY_POINTS["curry_tri_any_hit_small"] == \
-        build.ENTRY_POINTS["curry_tri_any_hit_thread"]
+        build.ENTRY_POINTS["curry_tri_any_hit_warp"]
     assert {"tri_closest_small", "tri_closest_stats_small", "tri_any_small"} <= set(TK.LAUNCHES)
 
 

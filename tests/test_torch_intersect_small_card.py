@@ -1,14 +1,14 @@
 """The small-table walk of csrc/intersect_small.cu (K1, its stats variant
-K1b, and K2) against the plain versions and the per-thread walk on the card.
-Imports nothing of JAX, so that it runs where only the port is installed:
+K1b, and K2) against the plain versions on the card, and the walk small
+sphere tables take instead (the warp walk). Imports nothing of JAX, so that
+it runs where only the port is installed:
 
     python -m pytest --noconftest tests/test_torch_intersect_small_card.py -q
 
 Tolerance: none. t bit-equal to the plain version's, rows and the stats
-(entered, improved) equal to the plain version's and to the per-thread
-walk's (each ray makes the same tests in the same order), any-hit equal,
-dead lanes (t_max 0 or -1) no hit. Without a card each test skips (marked
-cuda).
+(entered, improved) equal to the plain version's (each ray makes the same
+tests in the same order), any-hit equal, dead lanes (t_max 0 or -1) no
+hit. Without a card each test skips (marked cuda).
 """
 
 from pathlib import Path
@@ -19,6 +19,7 @@ import torch
 
 from curry_pbrt_tpu_torch.dtypes import FLOAT_MAX
 from curry_pbrt_tpu_torch.ops.kernels import intersect_kernel as TK
+from curry_pbrt_tpu_torch.ops.kernels import sphere_kernel as TS
 from curry_pbrt_tpu_torch.ops.kernels.aggregate import plan_tri_kernel
 from curry_pbrt_tpu_torch.sceneio.compiler import compile_scene_file
 
@@ -80,8 +81,7 @@ def _rays(n, seed, center=BOX_C, spread=SPREAD, live=None):
 
 def _hold(tab, rays):
     """The small walk (closest, with and without stats, and any) against the
-    plain versions and the per-thread walk; counts its launches. Returns the
-    closest hits."""
+    plain versions; counts its launches. Returns the closest hits."""
     dev = TK.DeviceTables(tab, "cuda")
     o, d, t_max = rays
     args = (o, d, t_max, dev.tris16, dev.caabb, dev.saabb, dev.slab_aabb)
@@ -89,8 +89,6 @@ def _hold(tab, rays):
     t_s, r_s = TK.tri_closest_hit_small(*args, **dev.kw)
     t_1, r_1, e_s, i_s = TK.tri_closest_hit_small(*args, **dev.kw, stats=True)
     h_s = TK.tri_any_hit_small(*args, **dev.kw)
-    t_t, r_t, e_t, i_t = TK.tri_closest_hit_thread(*args, **dev.kw, stats=True)
-    h_t = TK.tri_any_hit_thread(*args, **dev.kw)
     torch.cuda.synchronize()
     n = o.shape[0]
     assert t_s.shape == r_s.shape == h_s.shape == (n,)
@@ -100,12 +98,11 @@ def _hold(tab, rays):
         assert TK.LAUNCHES["tri_closest"] == before["tri_closest"]
     t_p, r_p, e_p, i_p = TK.tri_closest_hit_plain(*args, **dev.kw, stats=True)
     h_p = TK.tri_any_hit_plain(*args, **dev.kw)
-    for t, r in ((t_s, r_s), (t_1, r_1), (t_t, r_t)):
+    for t, r in ((t_s, r_s), (t_1, r_1)):
         assert torch.equal(t.view(torch.int32), t_p.view(torch.int32))
         assert torch.equal(r, r_p)
     assert torch.equal(e_s, e_p) and torch.equal(i_s, i_p)
-    assert torch.equal(e_t, e_p) and torch.equal(i_t, i_p)
-    assert torch.equal(h_s, h_p) and torch.equal(h_t, h_p)
+    assert torch.equal(h_s, h_p)
     assert not (r_s[~(t_max > 0)] >= 0).any() and not h_s[~(t_max > 0)].any()
     return int((r_p >= 0).sum())
 
@@ -188,3 +185,55 @@ def test_the_plan_refuses_tables_the_small_walk_cannot_stage(card):
         big.closest(o, d, t_max)
     with pytest.raises(ValueError, match="bytes"):
         big.any_hit(o, d, t_max)
+
+
+def _sphere_soup(n, seed, **kw):
+    """Block_s-8 sphere tables: n randomly rotated, anisotropically scaled
+    spheres in a 24-unit box."""
+    rng = np.random.default_rng(seed)
+    o2w = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+    for i in range(n):
+        q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        o2w[i, :3, :3] = q @ np.diag(rng.uniform(0.7, 1.4, 3))
+        o2w[i, :3, 3] = rng.uniform(-12, 12, 3)
+    return TS.build_sphere_tables(np.linalg.inv(o2w).astype(np.float32), o2w,
+                                  rng.uniform(0.2, 1.2, n).astype(np.float32),
+                                  np.arange(n, dtype=np.int32), block_s=8,
+                                  view_origin=np.zeros(3), **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, dict(clusters_per_slab=16, use_supers=True)],
+                         ids=["one-slab", "slabs-supers"])
+def test_sphere_tables_of_8_rows_take_the_warp_walk(card, kw):
+    """The launch plan sends sphere tables of 8 rows a cluster to the warp
+    walk (the small walk has no sphere test): t bit-equal to the plain
+    version's, sign included, rows equal up to exact-t ties, any-hit
+    equal, dead lanes no hit; also with t_max at each ray's own closest t
+    (the first-hit-at-t_max rule)."""
+    tab = _sphere_soup(600, 21, **kw)
+    assert tab.block_s == 8 and TK.launch_plan(tab.block_s, spheres=True) == "warp"
+    if kw:
+        assert tab.use_supers and tab.slab_aabbs.shape[0] > 1
+    dev = TS.DeviceSphereTables(tab, "cuda")
+    assert dev.plan == "warp"
+    o, d, t_max = _rays(50_001, 23, center=(0, 0, 0), spread=14.0)
+    tables = (dev.sph16, dev.caabb, dev.saabb, dev.slab_aabb)
+    t_p, _ = TS.sphere_closest_hit_plain(o, d, t_max, *tables, **dev.kw)
+    for tm in (t_max, torch.where(t_p < 1e30, t_p, t_max)):
+        before = dict(TK.LAUNCHES)
+        t_k, r_k = TS.sphere_closest_hit_tables(o, d, tm, *tables, **dev.kw)
+        h_k = TS.sphere_any_hit_tables(o, d, tm, *tables, **dev.kw)
+        torch.cuda.synchronize()
+        for key in ("sphere_closest", "sphere_any"):
+            assert TK.LAUNCHES[key] == before[key] + 1
+        t_p, r_p = TS.sphere_closest_hit_plain(o, d, tm, *tables, **dev.kw)
+        h_p = TS.sphere_any_hit_plain(o, d, tm, *tables, **dev.kw)
+        assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
+        assert torch.equal(r_k >= 0, r_p >= 0) and int((r_p >= 0).sum()) > 5_000
+        for i in torch.nonzero(r_k != r_p).squeeze(1).tolist():  # exact-t ties only
+            rows = dev.sph16[torch.stack([r_k[i], r_p[i]]).long()]
+            t_rows = TS._sphere_tile_test(rows, o[i:i + 1], d[i:i + 1], tm[i:i + 1])[0]
+            assert t_rows[0] == t_rows[1] == t_k[i]
+        assert torch.equal(h_k, h_p)
+        assert not (r_k[~(tm > 0)] >= 0).any() and not h_k[~(tm > 0)].any()

@@ -161,7 +161,7 @@ def test_launch_plan(case):
     assert (tab.block_t, tab.use_supers, tab.n_slabs, plan) == want
     assert TK.DeviceTables(tab, "cpu").plan == plan
     if case == "cornell-bt8":
-        assert nc < 16 and tab.block_t <= TK.PER_THREAD_MAX_BLOCK_T
+        assert nc < 16 and tab.block_t <= TK.SMALL_MAX_BLOCK_T
     if case == "mesh100k-1792":
         assert nc == 1792
     if case == "mesh600k-4.7k":
@@ -186,7 +186,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         (ValueError, "block_t", args, dict(kw, block_t=0)),
     ]
     for fn in (TK.tri_closest_hit_tables, TK.tri_any_hit_tables, TK.tri_closest_hit_warp,
-               TK.tri_any_hit_warp, TK.tri_closest_hit_thread, TK.tri_any_hit_thread):
+               TK.tri_any_hit_warp):
         fn(*args, **kw)  # the tables themselves are taken
         for err, match, a, k in bad:
             with pytest.raises(err, match=match):
@@ -230,11 +230,9 @@ def test_forced_walks_are_the_plain_versions_on_the_cpu():
     dev = TK.DeviceTables(tab, "cpu")
     o, d, t_max = (torch.from_numpy(a) for a in (o, d, t_max))
     before = dict(TK.LAUNCHES)
-    for walk in ("warp", "thread"):
-        pairs = ((dev.closest(o, d, t_max), getattr(dev, "closest_" + walk)(o, d, t_max)),
-                 ((dev.any_hit(o, d, t_max),), (getattr(dev, "any_hit_" + walk)(o, d, t_max),)))
-        for a, b in pairs:
-            assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert all(torch.equal(x, y) for x, y in zip(dev.closest(o, d, t_max),
+                                                 dev.closest_warp(o, d, t_max)))
+    assert torch.equal(dev.any_hit(o, d, t_max), dev.any_hit_warp(o, d, t_max))
     assert TK.LAUNCHES == before  # plain-version calls are not launches
 
 
@@ -247,14 +245,13 @@ def test_forced_sphere_walks_are_the_plain_versions_on_the_cpu():
     h_p = TS.sphere_any_hit_plain(*args, **dev.kw)
     assert int((r_p >= 0).sum()) > 5
     before = dict(TK.LAUNCHES)
-    for walk in ("", "_warp", "_thread"):
+    for walk in ("", "_warp"):
         t, r = getattr(dev, "closest" + walk)(o, d, t_max)
         assert torch.equal(t.view(torch.int32), t_p.view(torch.int32)) and torch.equal(r, r_p)
         assert torch.equal(getattr(dev, "any_hit" + walk)(o, d, t_max), h_p)
-    for fn in (TS.sphere_closest_hit_tables, TS.sphere_closest_hit_warp,
-               TS.sphere_closest_hit_thread):
+    for fn in (TS.sphere_closest_hit_tables, TS.sphere_closest_hit_warp):
         assert all(torch.equal(x, y) for x, y in zip(fn(*args, **dev.kw), (t_p, r_p)))
-    for fn in (TS.sphere_any_hit_tables, TS.sphere_any_hit_warp, TS.sphere_any_hit_thread):
+    for fn in (TS.sphere_any_hit_tables, TS.sphere_any_hit_warp):
         assert torch.equal(fn(*args, **dev.kw), h_p)
     assert TK.LAUNCHES == before  # plain-version calls are not launches
 
