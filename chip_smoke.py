@@ -46,15 +46,16 @@ non-zero and no result line is printed:
                render (plain versions); the K1 / K2 walk of the path's
                launch plan (the small walk at block_t 8) must have launched,
                the other walks and the plain versions not, and NEE's two
-               kernels (csrc/nee.cu) once a bounce of each chunk;
+               kernels (csrc/nee.cu) and the continuation kernel
+               (csrc/shade.cu) once a bounce of each chunk;
   5. headline— cornell_tex at 512², 64 spp, depth 5: a warm-up pass of the
                headline itself, whose first chunk's K1 / K2 inputs (11
                closest and 5 any calls, ~1.9 GB) are captured for phase 7,
                then a timed pass whose launch counts are reported; traced
                segments and the image sum against the JAX anchors
                (155,670,944 within 1e-4 relative; 86446.0 within 1e-3
-               relative), and the plan's walk alone and NEE's kernels once
-               a bounce, as in phase 4;
+               relative), and the plan's walk alone and NEE's and the
+               continuation's kernels once a bounce, as in phase 4;
   6. configs — spheres_direct_256 (the direct-lighting integrator),
                spherefield10k_256, mesh10k_512, mesh100k_512 and
                mesh600k_256 at their full bench configs: each planned once
@@ -69,7 +70,9 @@ non-zero and no result line is printed:
                mesh100k and mesh600k, the plan's K1 / K2 walk alone (the
                warp walk on the meshes), NEE's kernels once a bounce where
                the plan takes them (ShadeContext.nee_refusal None) and
-               else never, and no plain version may run on the card; spheres_direct_256 (no triangle, 4 spheres: the
+               else never, the continuation's likewise
+               (ShadeContext.shade_refusal), and no plain version may run
+               on the card; spheres_direct_256 (no triangle, 4 spheres: the
                dense sphere test) must launch no traversal kernel at all;
   7. bounds  — the kernels at the paths' own shapes, on rays captured from
                the warm-up passes of phases 5 and 6 (every K1 / K2 call of
@@ -96,6 +99,15 @@ non-zero and no result line is printed:
                other lanes' shadow and MIS rays at t_max 0; the whole call
                both ways in turns, the two kernels' and the walks' device
                ms, each kernel's bytes bound (nee.bound_bytes), and the
+               headline's per-pass sums;
+  7c. shade  — the continuation kernel (csrc/shade.cu through
+               ops/kernels/shade.py) on the path's own calls: every
+               continue_path call (one a bounce) of the same two chunks
+               (matte, textured matte, glass and mirror; plastic's Lambert
+               and GGX), its o, d, beta, specular and active bit-equal to
+               the plain path's (continue_path_plain) on every lane; the
+               call both ways in turns, the kernel's device ms (profiler)
+               beside its bytes bound (shade.bound_bytes), and the
                headline's per-pass sums;
   8. probes  — the traversal-analysis path (curry_pbrt_tpu_torch/tools/):
                the group kernel K4 (closest and any hit; each ray tests only
@@ -190,7 +202,8 @@ non-zero and no result line is printed:
                output finite; the intersect, predicate, NEE, full-bounce
                and chunk stages launched the small-walk K1 / K2 (the plan's
                walk) and no other walk, the NEE, full-bounce and chunk
-               stages NEE's two kernels too, the other stages no kernel of
+               stages NEE's two kernels too, the chunk stage the
+               continuation's kernel too, the other stages no kernel of
                the port, and no plain version ran on the card; the chunk's
                wall beside phase 5's pass wall over its 4 chunks; (b)
                `python -m curry_pbrt_tpu_torch.examples.render_from_file
@@ -310,6 +323,9 @@ GROUP_COUNTERS = ("tri_closest_group", "tri_any_group")
 # next-event estimation's two kernels (csrc/nee.cu): a launch each a bounce
 # of a render pass whose plan they implement (ShadeContext.nee_refusal None)
 NEE_COUNTERS = ("nee_sample", "nee_finish")
+# the path continuation's kernel (csrc/shade.cu): a launch a bounce of a
+# render pass whose plan it implements (ShadeContext.shade_refusal None)
+SHADE_COUNTERS = ("shade_continue",)
 
 # Phase 11 (b): one of two rank processes sharing the card over gloo. The
 # headline through render_distributed, then the gradient at the texture 0.5
@@ -1007,10 +1023,14 @@ def grad_leaves(params):
     return [n for n, _ in named], [leaf for _, leaf in named]
 
 
-def nee_calls(plan, params, start: int, pixels: int):
-    """The arguments of every uniform_sample_one_light call (one a bounce)
-    of the plan's chunk over `pixels` pixels from `start`, by name, as the
-    render path makes them (under no_grad, so through csrc/nee.cu)."""
+def path_calls(plan, params, start: int, pixels: int, fn: str):
+    """The arguments of every call of integrators.<fn> (one a bounce:
+    uniform_sample_one_light or continue_path) of the plan's chunk over
+    `pixels` pixels from `start`, by name, as the render path makes them
+    (under no_grad, so through csrc/nee.cu and csrc/shade.cu), the tensors
+    copied: the path's state is replaced at every bounce. Where the render
+    path passes no shading frame (the kernels build their own), the call
+    gets the one its plain version reads, so that both can take it."""
     import inspect
 
     import torch
@@ -1019,20 +1039,23 @@ def nee_calls(plan, params, start: int, pixels: int):
     from curry_pbrt_tpu_torch.models import integrators as I
 
     calls = []
-    real = I.uniform_sample_one_light
+    real = getattr(I, fn)
     sig = inspect.signature(real)
 
     def record(*args, **kw):
-        calls.append(dict(sig.bind(*args, **kw).arguments))
+        c = dict(sig.bind(*args, **kw).arguments)
+        calls.append({k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in c.items()})
+        if calls[-1]["frame"] is None:
+            calls[-1]["frame"] = I._shading_frame(c["hit"].n)
         return real(*args, **kw)
 
     po, xy = R.pixel_arrays(plan)
-    I.uniform_sample_one_light = record
+    setattr(I, fn, record)
     try:
         with torch.no_grad():
             R._render_chunk(plan, params, po[start:start + pixels], xy[start:start + pixels])
     finally:
-        I.uniform_sample_one_light = real
+        setattr(I, fn, real)
     torch.cuda.synchronize()
     return calls
 
@@ -1107,6 +1130,61 @@ def check_nee(name, c, reps: int = 3) -> dict:
     return out
 
 
+def check_shade(name, c, reps: int = 3) -> dict:
+    """The continuation kernel (ops/kernels/shade.continuation) against the
+    plain path (integrators.continue_path_plain) on one call's inputs
+    (path_calls', with the shading frame): o, d, beta, specular and active
+    bit-equal on every lane; the call's ms both ways by CUDA events in turns
+    (the plain path's frame built outside it); the kernel's device ms
+    (profiler); its bytes bound (shade.bound_bytes)."""
+    import torch
+
+    from curry_pbrt_tpu_torch.models import integrators as I
+    from curry_pbrt_tpu_torch.ops.kernels import shade as SK
+
+    with torch.no_grad():
+        got = SK.continuation(**c)
+        want = I.continue_path_plain(**c)
+        alive = want[4]
+        out = {"n": int(alive.shape[0]), "active_in": int(c["active"].sum()),
+               "alive": int(alive.sum()), "differ": 0, "max_abs_err": 0.0}
+        for key, g, w in zip(("o", "d", "beta", "specular", "active"), got, want):
+            same = g.view(torch.int32) == w.view(torch.int32) if g.is_floating_point() else g == w
+            bad = ~same.reshape(alive.shape[0], -1).all(-1)
+            out["differ"] += int(bad.sum())
+            if g.is_floating_point() and bad.any():
+                out["max_abs_err"] = max(out["max_abs_err"], float((g - w).abs().max()))
+            if bad.any():
+                raise AssertionError(f"{name}: the continuation kernel's {key} differs from the "
+                                     f"plain path in {int(bad.sum())} of {alive.shape[0]} lanes "
+                                     f"({int(bad[alive].sum())} alive after the bounce)")
+        if not all(bool(torch.isfinite(t).all()) for t in got[:3]):
+            raise AssertionError(f"{name}: the continuation kernel gives a non-finite value")
+        out["ms"], out["plain_ms"] = turns(lambda: SK.continuation(**c),
+                                           lambda: I.continue_path_plain(**c), reps)
+        # a session can miss a record now and then: the kernel's ms is the
+        # mean of the launches it shows, over 3 calls
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                SK.continuation(**c)
+            torch.cuda.synchronize()
+        dev = {"shade_continue": [0.0, 0], "other": [0.0, 3]}  # [µs, launches or calls]
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            k = port_kernel(e.key)
+            key = k[0] if k and k[0] in SHADE_COUNTERS else "other"
+            dev[key][0] += e.device_time_total
+            if key in SHADE_COUNTERS:
+                dev[key][1] += e.count
+        if not dev["shade_continue"][1]:
+            raise AssertionError(f"{name}: the profiler shows no launch of the continuation "
+                                 f"kernel: {dev}")
+        out.update({k + "_dev_ms": us / n / 1e3 for k, (us, n) in dev.items()})
+        out["bytes"] = SK.bound_bytes(c["mat_ids"], c["fam_lobes"], c["active"], c["bounce"])
+    return out
+
+
 # The port's kernels (csrc/*.cu) as the profiler names them, demangled:
 # "void curry::(anonymous namespace)::closest_warp_kernel<curry::TriPrim,
 # true>(float const*, ...)". → (the LAUNCHES key of the wrapper that
@@ -1115,7 +1193,7 @@ PORT_KERNEL = re.compile(
     r"^(?:void )?(?:curry::)?(?:\(anonymous namespace\)::)?"
     r"(closest_warp_kernel|any_warp_kernel|small_kernel|walk_kernel|compact_kernel"
     r"|closest_group_kernel|any_group_kernel|slab_grid_kernel|nee_sample_kernel"
-    r"|nee_finish_kernel)(<[^()]*>)?\(")
+    r"|nee_finish_kernel|continue_kernel)(<[^()]*>)?\(")
 
 
 def port_kernel(name: str):
@@ -1141,7 +1219,7 @@ def port_kernel(name: str):
         return ("bvh_any" if flags[0] == "true" else "bvh_closest"), fn.split("_")[0]
     return {"closest_group_kernel": "tri_closest_group", "any_group_kernel": "tri_any_group",
             "slab_grid_kernel": "slab_grid", "nee_sample_kernel": "nee_sample",
-            "nee_finish_kernel": "nee_finish"}[fn], ""
+            "nee_finish_kernel": "nee_finish", "continue_kernel": "shade_continue"}[fn], ""
 
 
 def launched_kernels(launches: dict) -> dict:
@@ -1443,6 +1521,13 @@ def main() -> int:
         want = depth * chunks if engaged else 0
         return launches["nee_sample"] == launches["nee_finish"] == want
 
+    def shade_ran(launches, walk, depth, engaged=True):
+        """csrc/shade.cu's continuation kernel launched once a bounce of
+        each chunk, or not at all where the plan's continuation takes the
+        plain path."""
+        chunks = launches["tri_closest" + K.WALK_SUFFIX[walk]] // (2 * depth + 1)
+        return launches["shade_continue"] == (depth * chunks if engaged else 0)
+
     def forbid(fn):
         def wrapped(o, *a, **kw):
             if o.device.type == "cuda":
@@ -1475,6 +1560,8 @@ def main() -> int:
                              f"({ctab.plan} walk) alone")
     if not nee_ran(launches_small, ctab.plan, 3):
         raise AssertionError("the slice did not launch NEE's two kernels once a bounce")
+    if not shade_ran(launches_small, ctab.plan, 3):
+        raise AssertionError("the slice did not launch the continuation kernel once a bounce")
     img_cpu = render_scene(small, device="cpu", show_progress=False)
     cpu_close = np.isclose(img, img_cpu, rtol=SLICE_RTOL, atol=SLICE_ATOL)
     log(f"[slice] card vs the port on the CPU (plain versions): max |Δ| "
@@ -1541,6 +1628,9 @@ def main() -> int:
                              f"({ctab.plan} walk) alone")
     if not nee_ran(launches, ctab.plan, depth):
         raise AssertionError("the headline did not launch NEE's two kernels once a bounce")
+    if not shade_ran(launches, ctab.plan, depth):
+        raise AssertionError("the headline did not launch the continuation kernel once a "
+                             "bounce")
 
     # ---- 6. the sphere-field and mesh configs
     phases.start("6 configs")
@@ -1622,6 +1712,12 @@ def main() -> int:
                                  f"plan takes them (refusal: {plan.ctx.nee_refusal}) and else "
                                  f"never")
         log(f"[configs] {name}: NEE {'through csrc/nee.cu' if plan.ctx.nee_refusal is None else 'on the plain path: ' + plan.ctx.nee_refusal}")
+        if sc.settings.integrator == "path" and not shade_ran(
+                launches, walk, cdepth, plan.ctx.shade_refusal is None):
+            raise AssertionError(f"{name}: the continuation kernel launched "
+                                 f"{launches['shade_continue']} times, not once a bounce where "
+                                 f"its plan takes it (refusal: {plan.ctx.shade_refusal}) and "
+                                 f"else never")
         if name.startswith("sphere") and min(launches["sphere_closest"],
                                              launches["sphere_any"]) <= 0:
             raise AssertionError(f"{name} did not run through the {ftab.plan} walk's K3: "
@@ -1787,7 +1883,8 @@ def main() -> int:
                                  f"{plan.ctx.nee_refusal}")
         C, n_pix = plan.chunk_pixels, sc.settings.resolution[0] * sc.settings.resolution[1]
         start = (n_pix // 2) // C * C
-        calls_nee = nee_calls(plan, params_from_numpy(sc.init_params, dev), start, C)
+        calls_nee = path_calls(plan, params_from_numpy(sc.init_params, dev), start, C,
+                               "uniform_sample_one_light")
         if len(calls_nee) != sc.settings.max_depth:
             raise AssertionError(f"{name}: {len(calls_nee)} NEE calls in a chunk, not "
                                  f"{sc.settings.max_depth}")
@@ -1817,6 +1914,41 @@ def main() -> int:
         f"ms (bound {head_nee['bound'][0]:.4f}), nee_finish "
         f"{head_nee['nee_finish_dev_ms']:.3f} ms (bound {head_nee['bound'][1]:.4f}), walks "
         f"{head_nee['walks_dev_ms']:.3f} ms, other ops {head_nee['other_dev_ms']:.3f} ms")
+
+    # ---- 7c. the path continuation's kernel on the paths' own calls
+    phases.start("7c shade")
+    shade_runs = {}  # scene → [check_shade of each bounce] of the chunk that holds the middle row
+    for name, sc in (("headline", head), ("mesh10k_512", config_scene("mesh10k_512"))):
+        plan = plan_render(sc, device="cuda")
+        if plan.ctx.shade_refusal is not None:
+            raise AssertionError(f"{name}: the continuation kernel does not take its plan: "
+                                 f"{plan.ctx.shade_refusal}")
+        C, n_pix = plan.chunk_pixels, sc.settings.resolution[0] * sc.settings.resolution[1]
+        start = (n_pix // 2) // C * C
+        calls_shade = path_calls(plan, params_from_numpy(sc.init_params, dev), start, C,
+                                 "continue_path")
+        if len(calls_shade) != sc.settings.max_depth:
+            raise AssertionError(f"{name}: {len(calls_shade)} continuation calls in a chunk, "
+                                 f"not {sc.settings.max_depth}")
+        shade_runs[name] = []
+        for bounce, c in enumerate(calls_shade):
+            st = check_shade(f"{name} continuation bounce {bounce}", c)
+            st["bound"] = least_ms(st["bytes"], 0)[0]
+            shade_runs[name].append(st)
+            log(f"[shade] {name} bounce {bounce} (chunk from pixel {start}; {st['n']} lanes, "
+                f"{st['active_in']} active, {st['alive']} alive after) on {card}: the kernel "
+                f"bit-equal to the plain path on every lane; the call {st['ms']:.4f} ms vs plain "
+                f"{st['plain_ms']:.4f} ms; device: continue_kernel "
+                f"{st['shade_continue_dev_ms']:.4f} ms (bound {st['bound']:.4f}, "
+                f"{st['bytes']} B), other ops {st['other_dev_ms']:.4f} ms")
+        del calls_shade, plan
+    torch.cuda.empty_cache()
+    head_shade = {f: n_chunks * sum(st[f] for st in shade_runs["headline"])
+                  for f in ("ms", "plain_ms", "shade_continue_dev_ms", "bound")}
+    log(f"[shade] per headline pass ({depth} calls a chunk x {n_chunks} chunks, each chunk as "
+        f"the middle one) on {card}: the calls {head_shade['ms']:.3f} ms vs plain "
+        f"{head_shade['plain_ms']:.3f} ms; device continue_kernel "
+        f"{head_shade['shade_continue_dev_ms']:.3f} ms (bound {head_shade['bound']:.4f})")
 
     # ---- 8. the traversal-analysis path: K4, the A/B, the roofline, the
     # granularity probe, P
@@ -2164,10 +2296,11 @@ def main() -> int:
 
     def bvh_alone(launches):
         """The live-ray BVH walk launched (closest and any hit), no other
-        traversal kernel; NEE's kernels may run beside it."""
+        traversal kernel; NEE's and the continuation's kernels may run
+        beside it."""
         need = ("bvh_closest", "bvh_any")
         return min(launches[k] for k in need) > 0 and not any(
-            v for k, v in launches.items() if k not in need + NEE_COUNTERS)
+            v for k, v in launches.items() if k not in need + NEE_COUNTERS + SHADE_COUNTERS)
 
     # (a) the walk against its plain version: a soup of 5k triangles and 64
     # rotated, scaled spheres, and the sphere field's BVH, at 32k rays with
@@ -2486,11 +2619,12 @@ def main() -> int:
     log(PS.table(stages))
     log(PS.json_line(stages))
     need, _ = walk_counters(ctab.plan)
-    # NEE under no_grad on the headline's plan: csrc/nee.cu's two kernels too
+    # NEE under no_grad on the headline's plan: csrc/nee.cu's two kernels too;
+    # the full bounce's and the chunk's continuation: csrc/shade.cu's kernel
     traversing = {"intersect closest": need[:1], "predicate": need[1:],
                   "NEE total": need + NEE_COUNTERS,
-                  "full bounce (isect+NEE+sample)": need + NEE_COUNTERS,
-                  "chunk": need + NEE_COUNTERS}
+                  "full bounce (isect+NEE+sample)": need + NEE_COUNTERS + SHADE_COUNTERS,
+                  "chunk": need + NEE_COUNTERS + SHADE_COUNTERS}
     for name, r in stages["stages"].items():
         if not r["finite"]:
             raise AssertionError(f"(a) stage {name!r}: its output is not finite")
@@ -2755,6 +2889,14 @@ def main() -> int:
               max(st["max_abs_err"] for st in nee_runs["headline"]),
               head_nee["nee_finish_dev_ms"], head_nee["plain_ms"],
               (head_nee["bound"][1], "bytes"), "curry_pbrt_tpu_torch/csrc/nee.cu"),
+        # the path continuation's kernel (no TPU counterpart: jnp in the JAX
+        # package's path_trace) per headline pass, from phase 7c's middle
+        # chunk: its device ms, the plain path's call and its bytes bound
+        entry("shade_continue", "none (jnp: path_trace's continuation)",
+              head_launches["shade_continue"],
+              max(st["max_abs_err"] for st in shade_runs["headline"]),
+              head_shade["shade_continue_dev_ms"], head_shade["plain_ms"],
+              (head_shade["bound"], "bytes"), "curry_pbrt_tpu_torch/csrc/shade.cu"),
     ]
     log(f"[total] chip_smoke ran {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -7,7 +7,7 @@ over fixed-shape tensors with active-lane masks:
     for bounce in 0..max_depth:
         closest hit → emission (bounce 0 / specular chains)
         → NEE (pick light, shadow ray, MIS; + BSDF-strategy leg)
-        → BSDF sample → spawn continuation → Russian roulette (mask+reweight)
+        → continuation: BSDF sample → spawn → Russian roulette (mask+reweight)
     final bounce: (t, prim) hit → emission
 
 The JAX package runs the bounces as a `lax.scan`; here it is a Python loop
@@ -45,6 +45,8 @@ from curry_pbrt_tpu_torch.ops import math as m
 from curry_pbrt_tpu_torch.ops.halton import HaltonConfig, halton_sample
 from curry_pbrt_tpu_torch.ops.intersect import Hit, offset_point_by_error
 from curry_pbrt_tpu_torch.ops.kernels import nee as NK
+from curry_pbrt_tpu_torch.ops.kernels import shade as SK
+from curry_pbrt_tpu_torch.ops.kernels import shading as SH
 from curry_pbrt_tpu_torch.utils import trace
 
 DIMS_PER_BOUNCE = 8
@@ -75,6 +77,8 @@ class ShadeContext:
     nee_slot: torch.Tensor  # (M_total + 1,) i32 by mat_id + 1: non-delta family slot, -1 none
     nee_fams: List[MaterialFamily]  # the non-delta families, by slot (csrc/nee.cu's slots)
     nee_refusal: Optional[str]  # why the NEE kernels do not implement this plan; None: they do
+    shade_slot: torch.Tensor  # (M_total + 1,) i32 by mat_id + 1: slot in `families`, -1 none
+    shade_refusal: Optional[str]  # why the continuation kernel does not implement this plan
 
 
 def _shading_frame(n):
@@ -177,15 +181,42 @@ def nee_plan_refusal(lights: LT.LightArrays, n_envs: int, slots: List[MaterialFa
     if types - {LT.TYPE_AREA_TRI}:
         return f"a light of type {min(types - {LT.TYPE_AREA_TRI})} (the kernels sample area " \
                f"triangles)"
-    if len(slots) > NK.MAX_FAMS:
-        return f"{len(slots)} non-delta families (at most {NK.MAX_FAMS})"
+    return _slots_refusal(slots, registry, NK.KINDS, with_delta=False)
+
+
+def shade_plan_refusal(families: List[MaterialFamily], registry) -> Optional[str]:
+    """Why the continuation kernel (ops/kernels/shade.py) does not implement
+    a plan's lobes, None where it does. Its slots are all of `families`.
+    Read from the host tables once, when the plan's ShadeContext is built."""
+    return _slots_refusal(families, registry, SK.KINDS, with_delta=True)
+
+
+def _slots_refusal(slots: List[MaterialFamily], registry, kinds_done,
+                   with_delta: bool) -> Optional[str]:
+    """Why a shading kernel's family slots (ops/kernels/shading.py) cannot
+    hold `slots`: too many families, too many lobes in one, or a lobe kind
+    outside `kinds_done`. `with_delta`: whether delta lobes take slots."""
+    what = "" if with_delta else "non-delta "
+    if len(slots) > SH.MAX_FAMS:
+        return f"{len(slots)} {what}families (at most {SH.MAX_FAMS})"
     for fam in slots:
-        kinds = [k for k in lobe_kinds(fam.rep, registry) if k not in B.DELTA_KINDS]
-        if len(kinds) > NK.MAX_LOBES:
-            return f"{len(kinds)} non-delta lobes in a family (at most {NK.MAX_LOBES})"
-        lacking = [k for k in kinds if k not in NK.KINDS]
+        kinds = [k for k in lobe_kinds(fam.rep, registry)
+                 if with_delta or k not in B.DELTA_KINDS]
+        if len(kinds) > SH.MAX_LOBES:
+            return f"{len(kinds)} {what}lobes in a family (at most {SH.MAX_LOBES})"
+        lacking = [k for k in kinds if k not in kinds_done]
         if lacking:
             return f"lobe kind {lacking[0]}"
+    return None
+
+
+def _lane_refusal(device) -> Optional[str]:
+    """Why no kernel of csrc/ runs for lanes on `device` in this autograd
+    mode, None where one may."""
+    if torch.device(device).type != "cuda":
+        return "lanes not on a CUDA card"
+    if torch.is_grad_enabled():
+        return "autograd on"
     return None
 
 
@@ -194,11 +225,15 @@ def nee_refusal(ctx: ShadeContext, device) -> Optional[str]:
     `device`, None where it runs the kernels: lanes off the card, autograd
     on, or the plan's own reason (ctx.nee_refusal). Reads no tensor, so a
     chunk program can record the choice."""
-    if torch.device(device).type != "cuda":
-        return "lanes not on a CUDA card"
-    if torch.is_grad_enabled():
-        return "autograd on"
-    return ctx.nee_refusal
+    return _lane_refusal(device) or ctx.nee_refusal
+
+
+def continuation_refusal(ctx: ShadeContext, device) -> Optional[str]:
+    """Why continue_path runs the plain path for lanes on `device`, None
+    where it runs the kernel: lanes off the card, autograd on, or the plan's
+    own reason (ctx.shade_refusal). Reads no tensor, so a chunk program can
+    record the choice."""
+    return _lane_refusal(device) or ctx.shade_refusal
 
 
 def uniform_sample_one_light(ctx, params, hit: Hit, mat_ids, wo, frame, u, fam_lobes, mask):
@@ -297,6 +332,57 @@ def uniform_sample_one_light_plain(ctx, params, hit: Hit, mat_ids, wo, frame, u,
     return (ld_light + ld_bsdf) * float(ctx.n_lights)
 
 
+def continue_path(ctx, hit: Hit, mat_ids, o, d, beta, specular, active, frame, u, fam_lobes,
+                  bounce: int):
+    """The path's continuation at one bounce (path.rs:41-56): the BSDF
+    sample across families, the spawned ray, the throughput and the path
+    state's update, then Russian roulette past bounce 3. `active`: the lanes
+    alive at this hit; u: the bounce's sampler values; fam_lobes: the
+    bounce's build_family_lobes output. Returns the new (o, d, beta,
+    specular, active).
+
+    Where continuation_refusal finds nothing against it (lanes on the card,
+    autograd off, lobe kinds the kernel implements) it runs the CUDA kernel
+    of csrc/shade.cu (ops/kernels/shade.py), and counts `shade_kernel` on
+    the open span; otherwise the plain path below, its plain version,
+    counted `shade_plain`.
+    """
+    if continuation_refusal(ctx, hit.p.device) is None:
+        trace.count("shade_kernel", 1)
+        return SK.continuation(ctx, hit, mat_ids, o, d, beta, specular, active, frame, u,
+                               fam_lobes, bounce)
+    trace.count("shade_plain", 1)
+    return continue_path_plain(ctx, hit, mat_ids, o, d, beta, specular, active, frame, u,
+                               fam_lobes, bounce)
+
+
+def continue_path_plain(ctx, hit: Hit, mat_ids, o, d, beta, specular, active, frame, u,
+                        fam_lobes, bounce: int):
+    """continue_path in PyTorch ops: the plain version of the kernel, and
+    the path of every call it does not take."""
+    fx, fy, fz = frame
+    wo_l = m.to_local(-d, fx, fy, fz)
+    wi_l, f, pdf, pres, is_delta = shade_sample(
+        ctx, fam_lobes, mat_ids, wo_l, u["bsdf_bucket"], u["bsdf_extra"]
+    )
+    wi = m.to_world(wi_l, fx, fy, fz)
+    cont = active & pres & (pdf != 0)
+    safe_pdf = torch.where(pdf == 0, 1.0, pdf)
+    throughput = f * (torch.abs(m.dot(wi, hit.n)) / safe_pdf)[:, None]
+    beta = torch.where(cont[:, None], beta * throughput, beta)
+    o = torch.where(cont[:, None], offset_point_by_error(hit.p, hit.n, hit.p_error, wi), o)
+    d = torch.where(cont[:, None], wi, d)
+    specular = torch.where(cont, is_delta, specular)
+    active = cont
+
+    # Russian roulette after bounce 3 (path.rs:47-56)
+    if bounce > 3:
+        q = torch.clamp(1.0 - B.luminance(beta), min=0.05)
+        active = active & ~(u["rr"] < q)
+        beta = beta / torch.clamp(1.0 - q, min=1e-6)[:, None]
+    return o, d, beta, specular, active
+
+
 def _bounce_u(indices, dim_base: int, bounce: int, cfg: HaltonConfig, perms):
     """This bounce's 8 sampler values. The RR dim is consumed only past
     bounce 3; earlier it is a zero plane, as in the JAX package."""
@@ -362,7 +448,11 @@ def path_trace(
         active = active & hit.valid & (mat_ids >= 0)  # (path.rs:30-34,64)
 
         trace.stage("shade")
-        frame = _shading_frame(hit.n)
+        # the frame only where a plain path (NEE's or the continuation's)
+        # reads it: the kernels build their own
+        plain = (nee_refusal(ctx, o.device) is not None
+                 or continuation_refusal(ctx, o.device) is not None)
+        frame = _shading_frame(hit.n) if plain else None
         wo = -d
         is_all_delta = ctx.mat_is_all_delta[torch.clamp(mat_ids, min=0).long()]
 
@@ -376,27 +466,8 @@ def path_trace(
         segments = segments + 2 * shaded.sum()
 
         trace.stage("shade")
-        # continuation (path.rs:41-46)
-        fx, fy, fz = frame
-        wo_l = m.to_local(wo, fx, fy, fz)
-        wi_l, f, pdf, pres, is_delta = shade_sample(
-            ctx, fam_lobes, mat_ids, wo_l, u["bsdf_bucket"], u["bsdf_extra"]
-        )
-        wi = m.to_world(wi_l, fx, fy, fz)
-        cont = active & pres & (pdf != 0)
-        safe_pdf = torch.where(pdf == 0, 1.0, pdf)
-        throughput = f * (torch.abs(m.dot(wi, hit.n)) / safe_pdf)[:, None]
-        beta = torch.where(cont[:, None], beta * throughput, beta)
-        o = torch.where(cont[:, None], offset_point_by_error(hit.p, hit.n, hit.p_error, wi), o)
-        d = torch.where(cont[:, None], wi, d)
-        specular = torch.where(cont, is_delta, specular)
-        active = cont
-
-        # Russian roulette after bounce 3 (path.rs:47-56)
-        if bounce > 3:
-            q = torch.clamp(1.0 - B.luminance(beta), min=0.05)
-            active = active & ~(u["rr"] < q)
-            beta = beta / torch.clamp(1.0 - q, min=1e-6)[:, None]
+        o, d, beta, specular, active = continue_path(ctx, hit, mat_ids, o, d, beta, specular,
+                                                     active, frame, u, fam_lobes, bounce)
 
     # final iteration (bounce == max_depth): emission only, then stop —
     # slim (t, prim) traversal; no attributes needed past the last shade

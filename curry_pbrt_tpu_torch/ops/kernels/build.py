@@ -130,6 +130,9 @@ ENTRY_POINTS = {
     "curry_nee_finish": [_P, _P],
     "curry_nee_sample_args_size": [],  # → sizeof the struct, for nee.py's layout check
     "curry_nee_finish_args_size": [],
+    # shade.cu: the argument struct (host memory; ops/kernels/shade.py), stream
+    "curry_shade_continue": [_P, _P],
+    "curry_shade_continue_args_size": [],  # → sizeof the struct, for shade.py's layout check
 }
 
 

@@ -30,8 +30,8 @@ force one walk, for the A/B of chip_smoke.py and the tools.
 `LAUNCHES` counts kernel launches per kernel, those of the sphere kernels
 (sphere_kernel.py), the group kernels (intersect_group.py), the BVH walk
 (bvh_kernel.py), the slab-grid probe (tools/probe_slab_grid.py), the
-texel gather's backward (texel_grad.py) and next-event estimation (nee.py)
-included.
+texel gather's backward (texel_grad.py), next-event estimation (nee.py)
+and the path continuation (shade.py) included.
 
 `stats=True` (K1b, the JAX kernel's roofline instrumentation) also returns
 per-ray (entered, improved) int32 counts: the cluster tiles each ray
@@ -68,13 +68,14 @@ USE_SUPERS_MIN = 96  # enable the super-cluster level beyond this many clusters
 # warp walk; tri_*_small: the small-table walk; tri_*_group: the group
 # kernel K4; bvh_*: the live-ray BVH walk; texel_grad: a texel gather's
 # backward (its sort and segment-sum launches); nee_sample / nee_finish:
-# the two halves of next-event estimation (nee.py), one each a call.
+# the two halves of next-event estimation (nee.py), one each a call;
+# shade_continue: the path continuation (shade.py), one a call.
 LAUNCHES = {"tri_closest": 0, "tri_closest_stats": 0, "tri_any": 0,
             "tri_closest_small": 0, "tri_closest_stats_small": 0, "tri_any_small": 0,
             "sphere_closest": 0, "sphere_any": 0,
             "tri_closest_group": 0, "tri_any_group": 0, "slab_grid": 0,
             "bvh_closest": 0, "bvh_any": 0,
-            "texel_grad": 0, "nee_sample": 0, "nee_finish": 0}
+            "texel_grad": 0, "nee_sample": 0, "nee_finish": 0, "shade_continue": 0}
 
 WARP = 32
 # Triangle tables of up to this many rows a cluster take the small-table

@@ -22,9 +22,9 @@ integrators.uniform_sample_one_light, beside that plain version
 integrators.nee_refusal finds nothing against it: lanes on a CUDA card,
 autograd off, and a plan (ShadeContext.nee_refusal, worked out once when
 the plan is built) with no infinite light, only area-triangle lights and
-at most MAX_FAMS non-delta families of at most MAX_LOBES lobes of the kinds
-in KINDS. `nee` launches the kernels or raises; it never falls back.
-Launches are counted in intersect_kernel.LAUNCHES["nee_sample"] and
+at most shading.MAX_FAMS non-delta families of at most shading.MAX_LOBES
+lobes of the kinds in KINDS. `nee` launches the kernels or raises; it never
+falls back. Launches are counted in intersect_kernel.LAUNCHES["nee_sample"] and
 ["nee_finish"] (one each a call); `bound_bytes` gives the least bytes the
 two kernels move for a call, their roofline.
 """
@@ -37,53 +37,33 @@ from typing import NamedTuple
 
 import torch
 
-from curry_pbrt_tpu_torch.dtypes import FLOAT_MAX, INV_PI, PI, Float, gamma
+from curry_pbrt_tpu_torch.ops.kernels import shading as SH
 from curry_pbrt_tpu_torch.ops.kernels.intersect_kernel import LAUNCHES
 
-KINDS = {"lambert_r": 0, "ggx_r": 1}  # lobe kinds the kernels implement (csrc/nee.cu)
-MAX_FAMS = 8  # non-delta families of a plan
-MAX_LOBES = 4  # non-delta lobes of a family
+KINDS = ("lambert_r", "ggx_r")  # lobe kinds the kernels implement (csrc/nee.cu)
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-
-
-class _Rows3(ctypes.Structure):
-    _fields_ = [("p", _P), ("s0", _I), ("s1", _I)]
-
-
-class _Rows1(ctypes.Structure):
-    _fields_ = [("p", _P), ("s0", _I), ("pad", _I)]
-
-
-class _Lobe(ctypes.Structure):
-    _fields_ = [("kind", _I), ("fresnel_noop", _I), ("albedo", _Rows3), ("alpha_x", _Rows1),
-                ("alpha_y", _Rows1), ("eta_a", _Rows1), ("eta_b", _Rows1)]
+_P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 class _Fam(ctypes.Structure):
-    _fields_ = [("n_lobes", _I), ("pad", _I), ("lobe", _Lobe * MAX_LOBES)]
-
-
-class _Consts(ctypes.Structure):
-    _fields_ = [("pi", _F), ("inv_pi", _F), ("g6", _F), ("shadow_t", _F), ("fmax", _F),
-                ("n_lights", _I)]
+    _fields_ = [("n_lobes", _I), ("pad", _I), ("lobe", SH.Lobe * SH.MAX_LOBES)]
 
 
 class _SampleArgs(ctypes.Structure):
-    _fields_ = ([("n", _I), ("n_fams", _I), ("k", _Consts)]
+    _fields_ = ([("n", _I), ("n_fams", _I), ("k", SH.Consts)]
                 + [(f, _P) for f in ("mask", "mat_ids", "fam_slot")]
-                + [(f, _Rows3) for f in ("p", "nrm", "perr", "wo")]
-                + [(f, _Rows1) for f in ("u_pick", "u_light0", "u_light1", "u_nee0", "u_nee1")]
+                + [(f, SH.Rows3) for f in ("p", "nrm", "perr", "wo")]
+                + [(f, SH.Rows1) for f in ("u_pick", "u_light0", "u_light1", "u_nee0", "u_nee1")]
                 + [(f, _P) for f in ("light_L", "tri_p0", "tri_p1", "tri_p2", "area", "vis_o",
                                      "vis_d", "vis_t", "o2", "wi2", "t2", "carry", "light_idx",
                                      "flags")]
-                + [("fam", _Fam * MAX_FAMS)])
+                + [("fam", _Fam * SH.MAX_FAMS)])
 
 
 class _FinishArgs(ctypes.Structure):
-    _fields_ = ([("n", _I), ("k", _Consts)]
+    _fields_ = ([("n", _I), ("k", SH.Consts)]
                 + [(f, _P) for f in ("flags", "occluded", "hit_t", "hit_prim", "prim_light")]
-                + [("p", _Rows3)]
+                + [("p", SH.Rows3)]
                 + [(f, _P) for f in ("o2", "wi2", "carry", "light_idx", "light_L", "tri_p0",
                                      "tri_p1", "tri_p2", "area", "out")])
 
@@ -101,36 +81,12 @@ def _library():
     return lib
 
 
-def _rows3(t: torch.Tensor, n: int) -> _Rows3:
-    if t.shape != (n, 3) or t.dtype != torch.float32:
-        raise ValueError(f"the NEE kernels take (N, 3) float32 rows; got {tuple(t.shape)} "
-                         f"{t.dtype} for N = {n}")
-    return _Rows3(t.data_ptr(), t.stride(0), t.stride(1))
-
-
-def _rows1(t: torch.Tensor, n: int) -> _Rows1:
-    if t.shape != (n,) or t.dtype != torch.float32:
-        raise ValueError(f"the NEE kernels take (N,) float32 values; got {tuple(t.shape)} "
-                         f"{t.dtype} for N = {n}")
-    return _Rows1(t.data_ptr(), t.stride(0), 0)
-
-
-def _consts(n_lights: int) -> _Consts:
-    return _Consts(float(PI), float(INV_PI), float(gamma(6)), float(Float(1.0 - 1e-5)),
-                   float(FLOAT_MAX), n_lights)
-
-
 def _fam_args(lobes, n: int) -> _Fam:
     nd = [lobe for lobe in lobes if not lobe.is_delta]
     fam = _Fam(len(nd), 0)
     for j, lobe in enumerate(nd):
-        la = fam.lobe[j]
-        la.kind = KINDS[lobe.kind]
-        la.fresnel_noop = int(lobe.fresnel_noop)
-        la.albedo = _rows3(lobe.albedo, n)
-        if lobe.kind == "ggx_r":
-            for name in ("alpha_x", "alpha_y", "eta_a", "eta_b"):
-                setattr(la, name, _rows1(getattr(lobe, name), n))
+        fam.lobe[j] = SH.lobe(lobe, n, ("alpha_x", "alpha_y", "eta_a", "eta_b")
+                              if lobe.kind == "ggx_r" else ())
     return fam
 
 
@@ -182,11 +138,11 @@ def nee_sample(ctx, light_L, hit, mat_ids, wo, u, fam_lobes, mask, lib, stream) 
     slots = ctx.nee_fams
     lobes_of = {id(fam): lobes for fam, lobes in fam_lobes}
     a = out.args
-    a.n, a.n_fams, a.k = n, len(slots), _consts(ctx.n_lights)
+    a.n, a.n_fams, a.k = n, len(slots), SH.consts(ctx.n_lights)
     a.mask, a.mat_ids, a.fam_slot = mask.data_ptr(), mat_ids.data_ptr(), ctx.nee_slot.data_ptr()
-    a.p, a.nrm, a.perr, a.wo = (_rows3(t, n) for t in (hit.p, hit.n, hit.p_error, wo))
+    a.p, a.nrm, a.perr, a.wo = (SH.rows3(t, n) for t in (hit.p, hit.n, hit.p_error, wo))
     us = [u[k] for k in ("light_pick", "light_u", "light_v", "nee_u", "nee_v")]
-    a.u_pick, a.u_light0, a.u_light1, a.u_nee0, a.u_nee1 = (_rows1(t, n) for t in us)
+    a.u_pick, a.u_light0, a.u_light1, a.u_nee0, a.u_nee1 = (SH.rows1(t, n) for t in us)
     a.light_L, a.tri_p0, a.tri_p1, a.tri_p2, a.area = (t.data_ptr() for t in tables)
     a.vis_o, a.vis_d, a.o2, a.wi2 = (out.rays[j].data_ptr() for j in range(4))
     a.vis_t, a.t2 = out.tmax[0].data_ptr(), out.tmax[1].data_ptr()

@@ -145,6 +145,9 @@ def make_shade_context(scene: Scene, device, ray_sort: Optional[bool] = None,
         nee_fams=nee_fams,
         nee_refusal=I.nee_plan_refusal(scene.lights, len(scene.envs), nee_fams,
                                        scene.material_registry),
+        shade_slot=torch.as_tensor(I.family_slot_table(families, all_delta.shape[0]),
+                                   device=device),
+        shade_refusal=I.shade_plan_refusal(families, scene.material_registry),
     )
 
 

@@ -20,9 +20,14 @@ of a headline pass.
 
 Each of the nine keeps the JAX tool's carry: its output perturbs the next
 repetition's input, as there, so no repetition is the same call twice.
-The full bounce builds the lobes once and shares them between NEE and the
-continuation sample, as the port's integrator does (the JAX body builds
-them twice). The three added stages have no carry, as in the JAX
+The full bounce is the port's bounce: one lobe build shared by NEE and
+the continuation (integrators.uniform_sample_one_light and continue_path,
+so on the card csrc/nee.cu's and csrc/shade.cu's kernels; the JAX body
+builds the lobes twice and spawns without the path state's update).
+shade_sample (full) times the plain every-family sample (each family's
+whole bsdf_sample over every lane, selected by material): the plain
+version of the continuation kernel's sample, which the render path runs
+only off the card or under autograd. The three added stages have no carry, as in the JAX
 profile_bench: eager PyTorch runs every call.
 
 Per stage, on the card:
@@ -69,7 +74,6 @@ from curry_pbrt_tpu_torch.models.camera import generate_rays
 from curry_pbrt_tpu_torch.ops import film as F
 from curry_pbrt_tpu_torch.ops import math as m
 from curry_pbrt_tpu_torch.ops.halton import halton_indices, halton_sample, halton_sample_2d
-from curry_pbrt_tpu_torch.ops.intersect import offset_point_by_error
 from curry_pbrt_tpu_torch.ops.kernels import intersect_kernel as K
 from curry_pbrt_tpu_torch.profile_render import _device_ms
 from curry_pbrt_tpu_torch.render import _chunked_pixel_arrays, _render_chunk, plan_render
@@ -115,6 +119,8 @@ class Stages:
         self.idx = torch.arange(n, dtype=torch.int64, device=dev)
         g = torch.Generator().manual_seed(seed + 1)
         self.u1 = torch.rand((n,), generator=g).to(dev)
+        self.beta = torch.ones((n, 3), device=dev)  # the full bounce's path state
+        self.specular = torch.zeros((n,), dtype=torch.bool, device=dev)
         with torch.no_grad():
             hit = self.hit = self.ctx.intersect(self.o, self.d, self.t_max)
             self.mat_ids = self._mat_ids(hit)
@@ -190,18 +196,22 @@ class Stages:
                                              lobes(), mask=shaded)
             return torch.clamp(u + 1e-7 * out[:, 0], 0.0, 1.0)
 
+        # path_trace's choice: the frame only where a plain path reads it
+        plain = (I.nee_refusal(ctx, plan.device) is not None
+                 or I.continuation_refusal(ctx, plan.device) is not None)
+
         def bounce(c):
             o2, d2, u = c
             h = ctx.intersect(o2, d2, self.t_max)
             mi = self._mat_ids(h)
-            fx, fy = m.coordinate_system(h.n)
+            alive = h.valid & (mi >= 0)
+            fr = I._shading_frame(h.n) if plain else None
             fl = I.build_family_lobes(ctx, mi, h.uv, params)
-            out = I.uniform_sample_one_light(ctx, params, h, mi, -d2, (fx, fy, h.n), self._u(u),
-                                             fl, mask=h.valid & (mi >= 0))
-            wi, _f, pdf, _pres, _d = I.shade_sample(ctx, fl, mi, m.to_local(-d2, fx, fy, h.n), u, u)
-            wiw = m.to_world(wi, fx, fy, h.n)
-            o3 = offset_point_by_error(h.p, h.n, h.p_error, wiw)
-            return o3, m.normalize(wiw + 1e-6 * out), torch.clamp(u + 1e-7 * pdf, 0.0, 1.0)
+            us = self._u(u)
+            out = I.uniform_sample_one_light(ctx, params, h, mi, -d2, fr, us, fl, mask=alive)
+            o3, d3, beta, _spec, _alive = I.continue_path(ctx, h, mi, o2, d2, self.beta,
+                                                          self.specular, alive, fr, us, fl, 1)
+            return o3, m.normalize(d3 + 1e-6 * out), torch.clamp(u + 1e-7 * beta[:, 0], 0.0, 1.0)
 
         cam, spp = plan.scene.camera, plan.scene.settings.spp
         return {

@@ -33,8 +33,8 @@ MAX_REL of its value (or MAX_ABS where the value is near 0). Without a card
 each test skips (marked cuda).
 """
 
-import inspect
 import json
+import runpy
 from pathlib import Path
 
 import numpy as np
@@ -77,24 +77,10 @@ def _plan(name, res, spp, chunk_pixels=None):
 
 def _calls(plan, params, pixels, start=0):
     """The arguments of every uniform_sample_one_light call of the plan's
-    chunk over `pixels` pixels from `start`, one a bounce, by name."""
-    calls = []
-    real = I.uniform_sample_one_light
-    sig = inspect.signature(real)
-
-    def record(*args, **kw):
-        calls.append(dict(sig.bind(*args, **kw).arguments))
-        return real(*args, **kw)
-
-    po, xy = render.pixel_arrays(plan)
-    I.uniform_sample_one_light = record
-    try:
-        with torch.no_grad():
-            render._render_chunk(plan, params, po[start:start + pixels], xy[start:start + pixels])
-    finally:
-        I.uniform_sample_one_light = real
-    torch.cuda.synchronize()
-    return calls
+    chunk over `pixels` pixels from `start`, one a bounce, by name, its
+    shading frame given (chip_smoke.py's path_calls)."""
+    smoke = runpy.run_path(str(REPO / "chip_smoke.py"), run_name="chip_smoke")
+    return smoke["path_calls"](plan, params, start, pixels, "uniform_sample_one_light")
 
 
 def _walked(ctx, fn):

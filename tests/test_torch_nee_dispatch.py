@@ -29,6 +29,7 @@ from curry_pbrt_tpu_torch import render
 from curry_pbrt_tpu_torch.interop import params_from_numpy
 from curry_pbrt_tpu_torch.models import integrators as I
 from curry_pbrt_tpu_torch.ops.kernels import nee as NK
+from curry_pbrt_tpu_torch.ops.kernels import shading as SH
 from curry_pbrt_tpu_torch.sceneio.compiler import compile_scene_file, compile_scene_string
 from curry_pbrt_tpu_torch.tools.env_scene import make_env_scene
 from curry_pbrt_tpu_torch.utils import trace
@@ -111,7 +112,8 @@ def test_the_plain_path_runs_and_counts_where_the_kernels_do_not(case, tmp_path)
         po, xy = render.pixel_arrays(plan)
         with trace.span("nee_dispatch_probe") as node:
             img, _, _ = render._render_chunk(plan, params, po, xy)
-    assert node.counts == {"nee_plain": plan.scene.settings.max_depth}
+    depth = plan.scene.settings.max_depth  # CPU lanes: the continuation is plain too
+    assert node.counts == {"nee_plain": depth, "shade_plain": depth}
     assert trace.count_totals()[("nee_dispatch_probe", "nee_plain")] >= node.counts["nee_plain"]
     assert "nee_plain    nee_dispatch_probe" in trace.summary()
     assert bool(torch.isfinite(img).all())
@@ -139,7 +141,7 @@ def test_the_family_slot_table_agrees_with_family_membership(scene):
     slots = I.nondelta_families(ctx.families, ctx.registry)
     assert [id(f) for f in ctx.nee_fams] == [id(f) for f in slots]
     assert ctx.nee_slot.tolist() == I.family_slot_table(slots, n_mats).tolist()
-    assert slots and len(slots) <= NK.MAX_FAMS
+    assert slots and len(slots) <= SH.MAX_FAMS
     ids = torch.arange(-1, n_mats, dtype=torch.int32)
     for s, fam in enumerate(slots):
         assert (ctx.nee_slot[ids.long() + 1] == s).tolist() == fam.mask(ids).tolist()
